@@ -1,0 +1,100 @@
+"""Cross-domain correspondence network, flagship branch.
+
+Counterpart of cocosnet_tpu/models/correspondence.py `CorrespondenceNet`
+for inference at match_kernel=3: two domain adaptors, the channel L2 norm,
+the (maskmix) residual stack, the theta/phi 1x1 convs and one fused
+3x3-unfold correlation + softmax + warp (ops/shift9.attend_shift9) whose
+values are the exemplar colors and, with the direct mask loss type, the
+exemplar's one-hot map.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Dict, Optional
+
+import torch
+import torch.nn as tnn
+
+from cocosnet_tpu_torch.config import Options
+from cocosnet_tpu_torch.models.generator import AdaptiveFeatureGenerator
+from cocosnet_tpu_torch.nn.blocks import ResidualBlock
+from cocosnet_tpu_torch.nn.layers import Conv2d, OneHotLabels
+from cocosnet_tpu_torch.ops.image import (avg_pool, resize_nearest,
+                                          upsample_nearest)
+from cocosnet_tpu_torch.ops.shift9 import attend_shift9
+
+_EPS = sys.float_info.epsilon
+
+
+def feature_normalize(x: torch.Tensor) -> torch.Tensor:
+    """L2 normalize over the channel dim (NHWC), f32."""
+    x = x.float()
+    return x / (torch.sqrt((x * x).sum(dim=-1, keepdim=True) + 1e-24) + _EPS)
+
+
+class CorrespondenceNet(tnn.Module):
+    def __init__(self, opt: Options):
+        super().__init__()
+        self.opt = opt
+        self.adaptive_model_seg = AdaptiveFeatureGenerator(opt,
+                                                           opt.semantic_nc)
+        self.adaptive_model_img = AdaptiveFeatureGenerator(opt, 3)
+        channels = 4 * opt.ngf + (opt.semantic_nc if opt.maskmix else 0)
+        self.layer = tnn.Sequential(*[ResidualBlock(channels)
+                                      for _ in range(4)])
+        self.theta = Conv2d(channels, 256, 1)
+        self.phi = Conv2d(channels, 256, 1)
+
+    def forward(self, ref_img: torch.Tensor, seg_map: torch.Tensor,
+                ref_seg_map: torch.Tensor, temperature: float = 0.01,
+                seg_label: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """ref_img (B, H, W, 3); seg_map / ref_seg_map (B, H, W,
+        semantic_nc) one-hot maps; seg_label, when given, the integer map
+        whose one-hot IS seg_map: the seg adaptor's first conv then reads
+        the labels (conv3x3_onehot) instead of the dense one-hot."""
+        opt = self.opt
+        out: Dict[str, torch.Tensor] = {}
+        b, ih, iw, _ = ref_img.shape
+        fh, fw = ih // opt.down, iw // opt.down
+        n = fh * fw
+
+        adaptor_x = seg_map
+        if seg_label is not None:
+            adaptor_x = OneHotLabels(seg_label, opt.semantic_nc,
+                                     seg_map.dtype)
+        feat_seg = feature_normalize(self.adaptive_model_seg(adaptor_x,
+                                                             seg_map))
+        feat_img = feature_normalize(self.adaptive_model_img(ref_img,
+                                                             ref_img))
+        out["adaptive_feature_seg"] = feat_seg
+        out["adaptive_feature_img"] = feat_img
+
+        seg_small = resize_nearest(seg_map, fh, fw)
+        ref_seg_small = resize_nearest(ref_seg_map, fh, fw)
+        if opt.maskmix:
+            cont_features = self.layer(torch.cat([feat_seg, seg_small], -1))
+            ref_features = self.layer(torch.cat([feat_img, ref_seg_small],
+                                                -1))
+        else:
+            cont_features = self.layer(feat_seg)
+            ref_features = self.layer(feat_img)
+
+        # descriptors stay f32: tau = 0.01 amplifies their error 100x
+        y_theta = self.theta(cont_features).float()
+        y_phi = self.phi(ref_features).float()
+
+        ref_v = avg_pool(ref_img, opt.down).reshape(b, n, 3)
+        need_direct_mask = (opt.warp_mask_losstype == "direct"
+                            or opt.show_warpmask)
+        values = [ref_v]
+        if need_direct_mask:
+            values.append(ref_seg_small.reshape(b, n, -1))
+        row_out = attend_shift9(y_theta, y_phi, torch.cat(values, -1),
+                                temperature, opt.PONO_C)
+        y = row_out[..., :3].reshape(b, fh, fw, 3)
+        out["warp_out"] = upsample_nearest(y, opt.down)
+        if need_direct_mask:
+            out["warp_mask"] = row_out[..., 3:].reshape(b, fh, fw, -1)
+        return out

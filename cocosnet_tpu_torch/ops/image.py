@@ -1,0 +1,61 @@
+"""Image ops with torch-reference semantics on NHWC tensors.
+
+Counterpart of cocosnet_tpu/ops/image.py, limited to what the flagship
+inference path uses:
+- F.interpolate(mode='nearest')  -> src = floor(dst * in/out)
+- nn.Upsample(scale_factor=k)     -> nearest repeat
+- F.avg_pool2d / F.max_pool2d     -> stride = kernel, no padding
+- the one-hot label scatter        (pix2pix_model.py:176-187)
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _nearest_indices(out_size: int, in_size: int, device) -> torch.Tensor:
+    # torch 'nearest' (not nearest-exact): src = floor(dst * in/out), the
+    # product taken in f32 as the reference package does
+    idx = torch.floor(torch.arange(out_size, device=device,
+                                   dtype=torch.float32) * (in_size / out_size))
+    return idx.to(torch.long).clamp(0, in_size - 1)
+
+
+def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """F.interpolate(x, size, mode='nearest') on NHWC."""
+    n, h, w, c = x.shape
+    if (h, w) == (out_h, out_w):
+        return x
+    if h % out_h == 0 and w % out_w == 0:
+        # integer-factor downscale: floor(i * h/out) == i * (h//out)
+        return x[:, :: h // out_h, :: w // out_w]
+    hi = _nearest_indices(out_h, h, x.device)
+    wi = _nearest_indices(out_w, w, x.device)
+    return x[:, hi][:, :, wi]
+
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """nn.Upsample(scale_factor=scale): integer nearest repeat."""
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c)
+    return x.reshape(n, h * scale, w * scale, c)
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """F.avg_pool2d(x, k): stride k, no padding."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), k)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def max_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """F.max_pool2d(x, k): stride k, no padding."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), k)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def one_hot_scatter(label: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """label (N, H, W) int -> one-hot (N, H, W, num_classes) float32; ids
+    outside [0, num_classes) give an all-zero row."""
+    classes = torch.arange(num_classes, device=label.device)
+    return (label[..., None] == classes).to(torch.float32)

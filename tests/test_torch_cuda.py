@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain versions on the card, at small
+shapes, through the public wrappers. Marked `cuda`: each test skips where
+there is no CUDA device. On a GPU machine, from the repository root
+(--noconftest: tests/conftest.py sets up JAX, which this file does not use):
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+(chip_smoke.py holds the same kernels at the flagship shapes.)"""
+
+import pytest
+import torch
+
+from cocosnet_tpu_torch.ops import conv3x3 as C
+from cocosnet_tpu_torch.ops import shift9 as S
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    # the plain versions must run in full f32 (cuDNN defaults to TF32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.Generator().manual_seed(0)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        flags
+
+
+def _r(g, *shape, scale=1.0, dtype=torch.float32):
+    return (torch.randn(*shape, generator=g) * scale).to("cuda", dtype)
+
+
+def _tol(ref, dtype):
+    # f32: reordered sums, ~sqrt(K) ulps of the scale; bf16: one rounding
+    scale = float(ref.float().abs().max())
+    return (2.0 ** -7 if dtype == torch.bfloat16 else 3e-5) * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reflect", [False, True])
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 64), (1, 4, 16, 151, 135),
+                                   (1, 3, 5, 7, 9)])
+def test_conv3x3_kernel_matches_plain(gen, shape, stats, reflect, dtype):
+    b, h, w, ci, co = shape
+    x = _r(gen, b, h, w, ci, dtype=dtype)
+    k = _r(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5, dtype=dtype)
+    bias = _r(gen, co, scale=0.1)
+    entry = C.conv3x3_fused_stats if stats else C.conv3x3_fused
+    n = entry.launches
+    got = entry(x, k, bias, reflect=reflect)
+    assert entry.launches == n + 1
+    want = C.conv3x3_plain(x, k, bias, reflect=reflect, want_stats=stats)
+    got, want = (got, want) if stats else ((got,), (want,))
+    assert got[0].dtype == dtype
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0,
+                               atol=_tol(want[0], dtype))
+    for a, r in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+def test_conv3x3_kernel_leaky(gen):
+    x, k = _r(gen, 1, 8, 16, 64), _r(gen, 3, 3, 64, 64, scale=1 / 24)
+    got = C.conv3x3_fused(x, k, None, leaky=0.2)
+    want = C.conv3x3_plain(x, k, None, leaky=0.2)
+    torch.testing.assert_close(got, want, rtol=0, atol=_tol(want, x.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_kernel_matches_plain(gen, dtype):
+    lab = torch.randint(-1, 21, (2, 9, 33), generator=gen).to("cuda")
+    k, bias = _r(gen, 3, 3, 19, 70, scale=0.3), _r(gen, 70, scale=0.1)
+    n = C.conv3x3_onehot.launches
+    got = C.conv3x3_onehot(lab, k, bias, dtype=dtype, want_stats=True)
+    assert C.conv3x3_onehot.launches == n + 1
+    want = C.onehot_plain(lab, k, bias, dtype=dtype, want_stats=True)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0,
+                               atol=_tol(want[0], dtype))
+    for a, r in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("pono_c", [True, False])
+@pytest.mark.parametrize("shape", [(8, 8, 16, 3), (32, 8, 16, 5),
+                                   (16, 16, 8, 3), (4, 64, 32, 40)])
+def test_shift9_kernel_matches_plain(gen, shape, pono_c):
+    h, w, c, d = shape
+    f, g = _r(gen, 2, h, w, c), _r(gen, 2, h, w, c, scale=1.5) + 0.2
+    v = _r(gen, 2, h * w, d)
+    n = S.attend_shift9.launches
+    got = S.attend_shift9(f, g, v, 0.01, pono_c)
+    assert S.attend_shift9.launches == n + 1
+    f3, g3, qv, kv = S.shift9_inputs(f, g, 0.01, pono_c)
+    want = S.shift9_core_plain(f3, g3, v, qv, kv, w)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+def test_kernels_raise_on_what_they_do_not_take(gen):
+    """A CUDA tensor launches the kernel or raises: no plain fallback."""
+    f = _r(gen, 1, 4, 128, 8)     # W = 128 does not divide the 64-row tile
+    with pytest.raises(ValueError, match="W dividing"):
+        S.attend_shift9(f, f, _r(gen, 1, 512, 3), 0.01)
+    x = _r(gen, 1, 8, 16, 64, dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        C.conv3x3_fused(x, _r(gen, 3, 3, 64, 64, dtype=torch.float16))

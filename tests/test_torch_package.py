@@ -1,0 +1,75 @@
+"""Rules of the port that hold for the package as a whole: it imports no
+JAX and nothing of cocosnet_tpu, its entry points default to CUDA and
+raise without it, and its kernel wrappers never fall back silently."""
+
+import ast
+import os
+import re
+
+import pytest
+import torch
+
+from cocosnet_tpu_torch import config as TCFG
+from cocosnet_tpu_torch import pix2pix as TP
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "cocosnet_tpu_torch")
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_no_jax_and_nothing_of_cocosnet_tpu(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "cocosnet_tpu")]
+    assert not bad, f"{path} imports {bad}"
+    with open(path) as f:
+        text = f.read()
+    # no dynamic import of them either, and no environment switch
+    assert not re.search(r"import_module\(\s*['\"](jax|cocosnet_tpu\b)",
+                         text)
+    assert "os.environ" not in text
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12,
+                             contain_dontcare_label=True, crop_size=64,
+                             ngf=8, PONO=True, isTrain=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TP.Pix2PixNets(opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TP.preprocess_input(opt, {}, device=None)
+    TP.Pix2PixNets(opt, device="cpu")  # the explicit CPU request is taken
+
+
+def test_unported_options_raise():
+    opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12, ngf=8,
+                             PONO=True, isTrain=False, match_kernel=1)
+    with pytest.raises(NotImplementedError, match="match_kernel"):
+        TP.Pix2PixNets(opt, device="cpu")
+
+
+def test_kernel_sources_build_from_the_package():
+    """Every kernel the build knows has its source in the package, and the
+    build writes under the checkout (build/kernels), nowhere else."""
+    from cocosnet_tpu_torch.ops import _build
+    for name in _build.SOURCES:
+        assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
+    assert os.path.commonpath([_build.BUILD_DIR, ROOT]) == ROOT
