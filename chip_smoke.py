@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for the
 H100): builds the hand-written kernels, holds each against its plain
-PyTorch version at the flagship shapes, then runs flagship ADE20k inference
-(256 px, batch 6, ngf 64, 151 classes, bf16 policy, seeded random weights)
-through preprocess_input and inference, and checks that every kernel of
-that path was launched.
+PyTorch version at the flagship shapes, runs a small inference slice and
+the small f32 train path (each loss term's gradient, two steps) on the card
+against the plain versions on the CPU,
+then flagship ADE20k inference (256 px, batch 6, ngf 64, 151 classes, bf16
+policy, seeded random weights) through preprocess_input and inference, and
+flagship training (the same net, ndf 64, batch 8, bf16, EMA, weight_mask
+100) through make_train_step, checking on each path that every kernel of
+that path was launched as often as the routing predicts.
 
     python3 chip_smoke.py
 
 Prints the card's name and power limit, one line per check, a `kernels`
-JSON line (per kernel: launches in one flagship forward, max error against
-its plain version, its time, the plain version's, the library call's and
-the least time the card could take), the device time of one batch-6 and
-one batch-1 forward by kernel family (torch.profiler) with the device's
-idle share, and as its last line
+JSON line (per kernel: its main path and its launches there, max error
+against its plain version, its time, the plain version's, the library
+call's and the least time the card could take), the device time of one
+batch-6 and one batch-1 forward and of one train step by kernel family
+(torch.profiler) with the device's idle share, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, with no such line, if there
 is no CUDA device, a kernel does not build or disagrees, or an output is
 wrong. Imports nothing of JAX or of the JAX package.
@@ -208,16 +212,97 @@ def check_shift9(S, g, *, pono_c):
                 bound_by=by, library_ms=None)
 
 
+BWD_NAMES = ("dF3", "dqv", "dG3", "dkv", "dV")
+# every output of the backward within this fraction of its largest
+# magnitude: f32 sums over N keys (or queries) in another order, with 1/tau
+# = 100 in the logits; dqs = sum_j gl * logits / qs cancels (gl sums to 0
+# over a row), so its error is relative to the logits' scale, not its own
+BWD_REL_TOL = 1e-4
+
+
+def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
+    """The forward and the backward kernel on one input against their
+    plain versions (the backward from the kernel forward's lse and a random
+    output gradient); with `timed`, the record of the backward."""
+    dev = "cuda"
+    f = torch.randn(b, h, w, c, generator=g).to(dev)
+    gg = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.2).to(dev)
+    n = h * w
+    v = torch.rand(b, n, d, generator=g).to(dev) * 2 - 1
+    go = torch.randn(b, n, d, generator=g).to(dev)
+    f3, g3, qv, kv = S.shift9_inputs(f, gg, 0.01, pono_c)
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    po, plse = S.shift9_core_plain(f3, g3, v, qv, kv, w)
+    torch.cuda.synchronize()
+    label = f"shift9 B{b} {h}x{w} C{c} D{d} pono_c={pono_c}"
+    err, lerr = _maxerr(o, po), _maxerr(lse, plse)
+    _check(err <= 1e-4 and lerr <= 1e-3,
+           f"{label} forward: o err {err:.3g} <= 1e-4, lse err {lerr:.3g} "
+           f"<= 1e-3")
+    del po, plse
+    dd = (go * o).sum(-1)
+    args = (f3, g3, v, qv, kv, lse, go, dd, w)
+    got = S.shift9_bwd_kernel(*args)
+    want = S.shift9_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs, scales = [], []
+    for a, r in zip(got, want):
+        errs.append(_maxerr(a, r))
+        scales.append(float(r.abs().max()))
+    del want
+    torch.cuda.empty_cache()
+    _check(all(e <= BWD_REL_TOL * s for e, s in zip(errs, scales)),
+           f"{label} backward: max err / max |out| "
+           + ", ".join(f"{nm} {e:.3g}/{s:.3g}"
+                       for nm, e, s in zip(BWD_NAMES, errs, scales))
+           + f" <= {BWD_REL_TOL:g} (f32 sums reordered, 1/tau in the logits)")
+    if not timed:
+        return None
+    ms = time_ms(lambda: S.shift9_bwd_kernel(*args), runs=5)
+    plain_ms = time_ms(lambda: S.shift9_bwd_plain(*args), runs=3)
+    torch.cuda.empty_cache()
+    c3 = 3 * c
+    # the function needs S3 = F3 G3^T and dP = gO V^T once each, then dF3 =
+    # dS3 G3, dG3 = dS3^T F3 and dV = P^T gO: 2 B N^2 (3 3C + 2 D). The
+    # two-pass design recomputes S3 and dP in its second pass, 2 B N^2
+    # (4 3C + 3 D); that count is printed beside the bound, not used for it
+    flops = 2.0 * b * n * n * (3 * c3 + 2 * d)
+    design_flops = 2.0 * b * n * n * (4 * c3 + 3 * d)
+    nb = _nbytes(f3, g3, v, qv, kv, lse, go, dd, *got)
+    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    print(f"     shift9 backward pono_c={pono_c}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, "
+          f"{flops / 1e9:.1f} GFLOP; the two-pass design does "
+          f"{design_flops / 1e9:.1f})", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
 # ------------------------------------------------------------------ phase 3
 
 def _counted():
-    """The kernel entries of the flagship path, by name."""
+    """The kernel entries of the flagship paths, by name."""
     from cocosnet_tpu_torch.ops import conv3x3 as C
     from cocosnet_tpu_torch.ops import shift9 as S
     return {"attend_shift9": S.attend_shift9,
+            "attend_shift9_backward": S.attend_shift9_backward,
             "conv3x3_fused": C.conv3x3_fused,
             "conv3x3_fused_stats": C.conv3x3_fused_stats,
             "conv3x3_onehot": C.conv3x3_onehot}
+
+
+INFERENCE_KERNELS = ("attend_shift9", "conv3x3_fused", "conv3x3_fused_stats",
+                     "conv3x3_onehot")
+# a train step runs every conv as a library conv (nn.layers.training) and
+# the shift9 core forward and backward on their kernels
+TRAIN_LAUNCHES = {"attend_shift9": 1, "attend_shift9_backward": 1,
+                  "conv3x3_fused": 0, "conv3x3_fused_stats": 0,
+                  "conv3x3_onehot": 0}
+
+
+def _zero_counts(counted) -> None:
+    for fn in counted.values():
+        fn.launches = 0
 
 
 def condition_weights(module, g, dev) -> None:
@@ -281,9 +366,9 @@ def reference_check(P, cfg, g):
     gpu.gen.load_state_dict(cpu.gen.state_dict())
     want = P.inference(cpu, P.preprocess_input(opt, batch, device="cpu"))
     counted = _counted()
-    before = {k: fn.launches for k, fn in counted.items()}
+    before = {k: counted[k].launches for k in INFERENCE_KERNELS}
     got = P.inference(gpu, P.preprocess_input(opt, batch, device="cuda"))
-    moved = {k: fn.launches - before[k] for k, fn in counted.items()}
+    moved = {k: counted[k].launches - before[k] for k in INFERENCE_KERNELS}
     _check(all(moved.values()), f"small input launched every kernel {moved}")
     for key in ("fake_image", "warp_out", "warp_mask"):
         err = _maxerr(got[key].cpu(), want[key])
@@ -291,17 +376,200 @@ def reference_check(P, cfg, g):
                f"CPU, {key}: max err {err:.3g} <= 5e-4")
 
 
+def train_opt(cfg, **kw):
+    """The flagship training configuration (bench.py's bench_train):
+    ade20k flags, TTUR, EMA, weight_mask 100, vgg_normal_correct."""
+    base = dict(dataset_mode="ade20k", contain_dontcare_label=True,
+                use_attention=True, maskmix=True, PONO=True, PONO_C=True,
+                warp_mask_losstype="direct", match_kernel=3,
+                vgg_normal_correct=True, use_ema=True, weight_mask=100.0,
+                isTrain=True)
+    return cfg.test_defaults(**{**base, **kw})
+
+
+TRAINED = ("gen", "corr", "disc")
+
+
+def _params(nets) -> dict:
+    """{net: {name: parameter}} of the trained networks, f64 on the CPU."""
+    return {net: {k: p.detach().cpu().double()
+                  for k, p in getattr(nets, net).named_parameters()}
+            for net in TRAINED}
+
+
+def _grads(nets, state) -> dict:
+    """{net: {name: gradient}} of the first step, f64 on the CPU: beta1 = 0
+    under TTUR, so a parameter's Adam first moment after its first update
+    is the gradient it was given."""
+    opts = {"gen": state.opt_g, "corr": state.opt_g, "disc": state.opt_d}
+    return {net: {k: opts[net].state[p]["exp_avg"].cpu().double()
+                  for k, p in getattr(nets, net).named_parameters()}
+            for net in TRAINED}
+
+
+def _rel_l2(got: dict, want: dict, base: dict = None) -> float:
+    """||got - want|| / ||want - base|| over all leaves of one network."""
+    num = sum(float(((got[k] - want[k]) ** 2).sum()) for k in want)
+    den = sum(float(((want[k] - (0 if base is None else base[k])) ** 2).sum())
+              for k in want)
+    return (num / den) ** 0.5
+
+
+def _check_losses(got, want, tol, what) -> None:
+    _check(set(got) == set(want), f"{what}: loss terms {sorted(got)}")
+    for key in sorted(want):
+        t, o = float(want[key]), float(got[key])
+        rel = abs(o - t) / (abs(t) + 1e-2)
+        _check(rel <= tol, f"{what} on the card vs plain on the CPU, {key}: "
+               f"{o:.6g} vs {t:.6g}, rel {rel:.3g} <= {tol:g}")
+
+
+def term_gradients(P, L, nets, batch) -> dict:
+    """{(net, loss term): [gradient of each parameter], f64 on the CPU} of
+    one train-mode forward as the train step runs it: each G-side term on
+    gen and on corr, each D term (on the detached fake) on disc, by its own
+    backward pass."""
+    data = P.preprocess_input(nets.opt, batch, device=nets.device)
+    nets.set_train(True)
+    try:
+        with L.training():
+            out = P.generate_fake(nets, data, train=True)
+            with torch.no_grad():
+                out["ref_features"] = P.vgg_features(nets, data["ref_image"])
+                out["real_features"] = P.vgg_features(nets,
+                                                      data["real_image"])
+            g_losses = P.compute_generator_losses(nets, data, out)
+            d_losses = P.compute_discriminator_losses(nets, data,
+                                                      out["fake_image"])
+    finally:
+        nets.set_train(False)
+    grads = {}
+    for losses, owners in ((g_losses, ("gen", "corr")), (d_losses, ("disc",))):
+        for key, loss in losses.items():
+            for net in owners:
+                ps = list(getattr(nets, net).parameters())
+                gs = torch.autograd.grad(loss, ps, retain_graph=True,
+                                         allow_unused=True)
+                grads[(net, key)] = [
+                    torch.zeros(p.shape, dtype=torch.float64) if t is None
+                    else t.cpu().double() for p, t in zip(ps, gs)]
+    return grads
+
+
+def train_reference_check(P, cfg, L, TS, ST, g):
+    """The train step's gradients and two f32 train steps on the card
+    (shift9 kernels forward and backward, library convs) against the same
+    weights and batch through the plain versions on the CPU, at
+    reference_check's size (128 x 256, ngf 16, ndf 16, 13 classes, batch
+    1):
+    - each loss term's gradient on each network it trains, at 2e-2
+      relative L2: the f32 orders alone move them up to 7e-3 (the
+      contextual loss's 1 - cos cancels, and 1/tau = 100 amplifies the
+      warp's logit errors), while a wrong backward moves its terms by
+      O(1) (F.avg_pool2d's CUDA backward on an NHWC view moved the GAN
+      terms by 0.2-0.44);
+    then one step:
+    - every loss term at rel 2e-3 with |t| + 1e-2 in the denominator, as
+      the CPU tests hold a train step against the JAX package;
+    - the step's gradient of each network (its Adam first moment: beta1 =
+      0 under TTUR) at 2e-2 relative L2;
+    - each network's update p1 - p0, and the EMA shadows' move, at 10%
+      relative L2 (Adam's first step is near lr * sign(g), so the few
+      elements whose gradient lies near eps move by other amounts);
+    - every spectral u/v (G's and Corr's advanced once, D's twice) at atol
+      2e-5;
+    and the second step's losses at rel 2e-2, as the CPU tests hold it."""
+    opt = train_opt(cfg, label_nc=12, crop_size=256, load_size=256,
+                    aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16)
+    batch = make_batch(g, 1, 128, 256, opt.semantic_nc)
+    cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
+    for net in cpu.modules():
+        condition_weights(net, g, "cpu")
+    gpu = P.Pix2PixNets(opt, device="cuda", seed=1)
+    for a, b in zip(cpu.modules(), gpu.modules()):
+        b.load_state_dict(a.state_dict())
+    # the forward advances the spectral u/v: both nets restart from here
+    start = [{k: v.clone() for k, v in m.state_dict().items()}
+             for m in cpu.modules()]
+    want_g = term_gradients(P, L, cpu, batch)
+    got_g = term_gradients(P, L, gpu, batch)
+    for key in sorted(want_g):
+        num = sum(float(((a - b) ** 2).sum())
+                  for a, b in zip(got_g[key], want_g[key]))
+        den = sum(float((b ** 2).sum()) for b in want_g[key])
+        rel = (num / den) ** 0.5 if den else (0.0 if num == 0 else 1.0)
+        _check(rel <= 2e-2, f"gradient of {key[1]} on {key[0]} (norm "
+               f"{den ** 0.5:.4g}), card vs CPU: relative L2 {rel:.3g} "
+               f"<= 2e-2")
+    del want_g, got_g
+    for sd, a, b in zip(start, cpu.modules(), gpu.modules()):
+        a.load_state_dict(sd)
+        b.load_state_dict(sd)
+    p0 = _params(cpu)
+    lr = TS.lrs_for_epoch(opt, 1)
+    cstate, gstate = TS.create_train_state(opt, cpu), \
+        TS.create_train_state(opt, gpu)
+    cstep, gstep = ST.make_train_step(cpu), ST.make_train_step(gpu)
+    want, _ = cstep(cstate, batch, lr)
+    counted = _counted()
+    _zero_counts(counted)
+    got, _ = gstep(gstate, batch, lr)
+    torch.cuda.synchronize()
+    moved = {k: fn.launches for k, fn in counted.items()}
+    _check(moved == TRAIN_LAUNCHES,
+           f"small train step launched {moved} == {TRAIN_LAUNCHES}")
+    _check_losses(got, want, 2e-3, "small train step")
+
+    cg, gg = _grads(cpu, cstate), _grads(gpu, gstate)
+    cp, gp = _params(cpu), _params(gpu)
+    for net in TRAINED:
+        rel = _rel_l2(gg[net], cg[net])
+        _check(rel <= 2e-2, f"small train step, {net} gradient "
+               f"({len(cg[net])} tensors) on the card vs the CPU: relative "
+               f"L2 {rel:.3g} <= 2e-2")
+        upd = _rel_l2(gp[net], cp[net], p0[net])
+        _check(upd <= 0.1, f"small train step, {net} update p1 - p0: "
+               f"relative L2 {upd:.3g} <= 0.1")
+    for net in ("gen", "corr"):
+        pre = net + "."
+        ce = {k: v.cpu().double() for k, v in cstate.ema.items()
+              if k.startswith(pre)}
+        ge = {k: gstate.ema[k].cpu().double() for k in ce}
+        base = {k: p0[net][k[len(pre):]] for k in ce}
+        ema = _rel_l2(ge, ce, base)
+        _check(ema <= 0.1, f"small train step, {net} EMA shadow move: "
+               f"relative L2 {ema:.3g} <= 0.1")
+
+    worst, count = 0.0, 0
+    for a, b in zip(cpu.modules(), gpu.modules()):
+        sb = b.state_dict()
+        for k, t in a.state_dict().items():
+            if k.endswith(("weight_u", "weight_v")):
+                worst = max(worst, _maxerr(sb[k].cpu(), t))
+                count += 1
+    _check(count > 0 and worst <= 2e-5,
+           f"spectral u/v after the step ({count} vectors): max err "
+           f"{worst:.3g} <= 2e-5")
+
+    want, _ = cstep(cstate, batch, lr)
+    got, _ = gstep(gstate, batch, lr)
+    _check_losses(got, want, 2e-2, "second small train step")
+
+
 KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
     ("conv3x3.cu", ("conv3x3_kernel",)),
     ("conv3x3_onehot.cu", ("onehot_kernel",)),
     ("shift9_fwd.cu", ("shift9_fwd_kernel",)),
-    ("library conv (cuDNN)", ("conv", "fprop", "cudnn", "implicit")),
+    ("shift9_bwd.cu", ("shift9_bwd_kernel",)),
+    ("library conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                              "implicit")),
     ("library matmul", ("gemm", "cutlass", "cublas")),
+    ("optimizer (Adam, EMA)", ("multi_tensor", "adam")),
     ("softmax / reductions", ("softmax", "reduce", "norm")),
 )
 
 
-def profile_forward(fn) -> None:
+def profile_call(fn) -> None:
     """Device time of one call of `fn` by kernel family, from
     torch.profiler's CUDA kernel events, and the device's idle share of the
     host-timed call."""
@@ -338,6 +606,66 @@ def profile_forward(fn) -> None:
     for key, (n, us) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
         print(f"  {key:24s} {n:5d} launches {us / 1e3:9.3f} ms "
               f"{us / total:6.1%}")
+    # the backward kernel's two passes (its template argument: the owner
+    # side is the queries, or the keys)
+    for flag, what in (("<true>", "query pass"), ("<false>", "key pass")):
+        us = sum(e.time_range.elapsed_us() for e in kernels
+                 if "shift9_bwd_kernel" + flag in e.name)
+        if us:
+            print(f"    shift9_bwd.cu {what}: {us / 1e3:.3f} ms")
+
+
+def flagship_training(P, cfg, TS, ST, g) -> dict:
+    """Phase 5: flagship training at batch 8 under the bf16 policy through
+    make_train_step: the launches of one step, finite losses, two warm-up
+    steps, then timed steps, peak memory and a profile of one step.
+    Returns the launches of the counted step."""
+    opt = train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
+                    batchSize=8, ngf=64, ndf=64)
+    nets = P.Pix2PixNets(opt, seed=0)
+    for net in nets.modules():
+        condition_weights(net, g, "cuda")
+    state = TS.create_train_state(opt, nets)
+    step = ST.make_train_step(nets)
+    lr = TS.lrs_for_epoch(opt, 1)
+    batch = {k: v.cuda() for k, v in
+             make_batch(g, 8, 256, 256, opt.semantic_nc).items()}
+    torch.cuda.reset_peak_memory_stats()
+
+    def finite(losses):
+        return all(bool(torch.isfinite(v)) for v in losses.values())
+
+    counted = _counted()
+    _zero_counts(counted)
+    losses, vis = step(state, batch, lr)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"launches in one flagship train step: {launches}", flush=True)
+    _check(launches == TRAIN_LAUNCHES,
+           f"every kernel of the train path launched as the routing "
+           f"predicts {TRAIN_LAUNCHES}")
+    _check(len(losses) == 9 and finite(losses),
+           "9 loss terms, all finite: " + ", ".join(
+               f"{k} {float(v):.4g}" for k, v in sorted(losses.items())))
+    _check(tuple(vis["fake_image"].shape) == (8, 256, 256, 3)
+           and bool(torch.isfinite(vis["fake_image"]).all()),
+           "fake_image (8, 256, 256, 3) finite")
+    losses, _ = step(state, batch, lr)          # second warm-up
+    _check(finite(losses), "second step's losses finite")
+    steps = 10
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        losses, _ = step(state, batch, lr)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / steps
+    _check(finite(losses), f"losses finite after {steps + 2} steps")
+    print(f"flagship training batch 8: {dt:.4f} s/step, {8 / dt:.2f} "
+          f"images/s ({steps} steps after 2 warm-ups, host clock); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    profile_call(lambda: step(state, batch, lr))
+    return launches
 
 
 def main() -> None:
@@ -350,6 +678,8 @@ def main() -> None:
     from cocosnet_tpu_torch.ops import _build
     from cocosnet_tpu_torch.ops import conv3x3 as C
     from cocosnet_tpu_torch.ops import shift9 as S
+    from cocosnet_tpu_torch.train import state as TS
+    from cocosnet_tpu_torch.train import steps as ST
 
     # phase 1: environment and build
     smi = subprocess.run(
@@ -373,6 +703,14 @@ def main() -> None:
     for pono_c in (True, False):
         r = check_shift9(S, g, pono_c=pono_c)
         rows.setdefault("attend_shift9", r)
+    # the backward at the flagship training shape (batch 8), then an image
+    # width of 128 (a 512 px crop), forward and backward
+    for pono_c in (True, False):
+        r = check_shift9_bwd(S, g, b=8, h=64, w=64, c=256, d=154,
+                             pono_c=pono_c, timed=True)
+        rows.setdefault("attend_shift9_backward", r)
+    check_shift9_bwd(S, g, b=1, h=128, w=128, c=256, d=154, pono_c=True,
+                     timed=False)
     conv_cases = [
         ("conv3x3_fused", dict(b=6, h=64, w=64, ci=512, co=512, reflect=True,
                                stats=False, label="fused 512->512 @64^2 "
@@ -402,9 +740,14 @@ def main() -> None:
 
     # phase 3: the small-input slice against the plain versions
     reference_check(P, cfg, g)
+    # phase 3b: a small f32 train step against the plain versions
+    train_reference_check(P, cfg, L, TS, ST, g)
+    torch.cuda.empty_cache()
 
-    # phase 4: flagship inference, bf16 policy, seeded random weights
+    # phase 4: flagship inference, bf16 policy, seeded random weights; the
+    # peak memory it reports is its own, not the kernel checks'
     L.set_compute_dtype(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
     opt = cfg.test_defaults(
         dataset_mode="ade20k", label_nc=150, contain_dontcare_label=True,
         crop_size=256, load_size=256, batchSize=6, ngf=64,
@@ -415,14 +758,14 @@ def main() -> None:
     condition_weights(nets.gen, g, "cuda")
     batch = make_batch(g, 6, 256, 256, opt.semantic_nc)
     counted = _counted()
-    for fn in counted.values():
-        fn.launches = 0
+    _zero_counts(counted)
     out = P.inference(nets, P.preprocess_input(opt, batch))
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counted.items()}
     print(f"launches in one flagship forward: {launches}", flush=True)
-    expected = {"attend_shift9": 1, "conv3x3_fused": 80,
-                "conv3x3_fused_stats": 20, "conv3x3_onehot": 1}
+    expected = {"attend_shift9": 1, "attend_shift9_backward": 0,
+                "conv3x3_fused": 80, "conv3x3_fused_stats": 20,
+                "conv3x3_onehot": 1}
     _check(launches == expected,
            f"every kernel of the path launched as the routing predicts "
            f"{expected}")
@@ -458,20 +801,35 @@ def main() -> None:
           f"{lat[len(lat) // 2]:.2f} ms end to end with preprocessing "
           f"({fwd1_ms:.2f} ms forward); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    profile_forward(lambda: P.inference(nets, data))
-    profile_forward(lambda: P.inference(nets, data1))
+    profile_call(lambda: P.inference(nets, data))
+    profile_call(lambda: P.inference(nets, data1))
+    del nets, out, data, data1
+    torch.cuda.empty_cache()
 
+    # phase 5: flagship training, bf16 policy, seeded random weights
+    train_launches = flagship_training(P, cfg, TS, ST, g)
+
+    # per kernel: its source, the TPU kernel it replaces, and the main path
+    # whose run counts its launches (the path it came in with)
+    runs = {"inference": launches, "train step": train_launches}
     src = {"attend_shift9": ("cocosnet_tpu_torch/csrc/shift9_fwd.cu",
-                             "cocosnet_tpu/ops/pallas_shift9.py:173"),
+                             "cocosnet_tpu/ops/pallas_shift9.py:173",
+                             "inference"),
+           "attend_shift9_backward": ("cocosnet_tpu_torch/csrc/shift9_bwd.cu",
+                                      "cocosnet_tpu/ops/pallas_shift9.py:302",
+                                      "train step"),
            "conv3x3_fused": ("cocosnet_tpu_torch/csrc/conv3x3.cu",
-                             "cocosnet_tpu/ops/pallas_conv.py:174"),
+                             "cocosnet_tpu/ops/pallas_conv.py:174",
+                             "inference"),
            "conv3x3_fused_stats": ("cocosnet_tpu_torch/csrc/conv3x3.cu",
-                                   "cocosnet_tpu/ops/pallas_conv.py:174"),
+                                   "cocosnet_tpu/ops/pallas_conv.py:174",
+                                   "inference"),
            "conv3x3_onehot": ("cocosnet_tpu_torch/csrc/conv3x3_onehot.cu",
-                              "cocosnet_tpu/ops/pallas_conv.py:808")}
-    kernels = [dict(name=k, route="cuda", source=src[k][0],
-                    replaces=src[k][1], launches=launches[k], **rows[k])
-               for k in expected]
+                              "cocosnet_tpu/ops/pallas_conv.py:808",
+                              "inference")}
+    kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
+                    path=path, launches=runs[path][k], **rows[k])
+               for k, (source, replaces, path) in src.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,29 +19,34 @@
 // the products run in f32 FMA - never single-pass bf16 or TF32 - and the
 // bound is the card's f32 rate.
 //
-// Design: one block per (sample, 64-query tile); the block walks 64-key
-// tiles with an online softmax, flash style. Tiles are 64 positions, so at
-// any image width W dividing 64 they are whole image rows, and a +-1
-// diagonal shift leaves the tile only at masked columns: S3 of the tile
-// alone is enough. Per key tile: S3 (64 x 64) accumulates from 32-wide
-// shared-memory chunks of F3 and G3 (4 x 4 per thread), lands in shared
-// memory, each warp turns 8 query rows into logits, updates its running max
-// and sum in registers and accumulates P V for those rows with V's tile in
-// shared memory. A first, simple kernel: no tensor cores, no TMA, F3 chunks
-// re-read from L2 for every key tile.
+// Design: one block per (sample, 62-query tile); the block walks 62-key
+// tiles with an online softmax, flash style. S3 is computed on the tile
+// plus a one-position halo on each side (64 x 64), so the +-1 diagonal
+// shifts of every position of the tile are in shared memory at any image
+// width W: positions are flattened row-major, a halo position past the end
+// of an image row is exactly the one the column mask zeroes, and halo
+// positions outside [0, N) load as zeros and are never unmasked. Per key
+// tile: S3 (64 x 64) accumulates from 32-channel chunks of F3 and G3 staged
+// k-major in shared memory (a 4 x 4 register tile per thread, read as two
+// float4; the next chunk is fetched into registers while this one is
+// multiplied), lands in shared memory, each warp turns 8 query rows into
+// logits, updates its running max and sum in registers and accumulates P V
+// for those rows with V's tile in shared memory. A simple kernel: no tensor
+// cores, no TMA, F3 chunks re-read from L2 for every key tile, 6% of S3
+// spent on the halo.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int TQ = 64;
-constexpr int TK = 64;
+constexpr int EXT = 64;       // tile plus halo, both sides
+constexpr int TQ = EXT - 2;   // queries (and keys) a tile owns
 constexpr int KC = 32;
 constexpr int NT = 256;
-constexpr int ROWS = TQ / (NT / 32);  // query rows per warp
-constexpr int LDF = KC + 1;
-constexpr int LDS = TK + 1;
+constexpr int ROWS = EXT / (NT / 32);  // tile rows per warp
+constexpr int LDT = EXT + 4;   // k-major staging, float4 rows
+constexpr int LDS = EXT + 4;   // S3 and P, float4 rows
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -53,23 +58,28 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+__device__ __forceinline__ int col_of(int pos, int W) {
+  return ((pos % W) + W) % W;
+}
 
+// Two blocks per SM: ptxas then holds the kernel to 128 registers and
+// spills a few, which costs less than the latency one block cannot hide.
 template <int NC>  // value columns per lane; D padded to 32 * NC
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
     shift9_fwd_kernel(const float* __restrict__ f3, const float* __restrict__ g3,
                       const float* __restrict__ v, const float* __restrict__ qv,
                       const float* __restrict__ kv, float* __restrict__ o,
                       float* __restrict__ lse, int N, int C3, int D, int W) {
   extern __shared__ __align__(16) float sm[];
   constexpr int DP = 32 * NC;
-  float* Fs = sm;               // [TQ][LDF]
-  float* Gs = Fs + TQ * LDF;    // [TK][LDF]
-  float* S = Gs + TK * LDF;     // [TQ][LDS]
-  float* P = S + TQ * LDS;      // [TQ][LDS]
-  float* Vs = P + TQ * LDS;     // [TK][DP]
+  float* Ft = sm;               // [KC][LDT]
+  float* Gt = Ft + KC * LDT;    // [KC][LDT]
+  float* S = Gt + KC * LDT;     // [EXT][LDS]
+  float* P = S + EXT * LDS;     // [EXT][LDS]
+  float* Vs = P + EXT * LDS;    // [EXT][DP]
 
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * TQ;
+  const int q0 = blockIdx.x * TQ - 1;  // global position of tile row 0
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int tx = tid % 16, ty = tid / 16;
@@ -81,81 +91,112 @@ __global__ void __launch_bounds__(NT)
   o += (size_t)b * N * D;
   lse += (size_t)b * N;
 
+  // a tile row is live when it is not halo and lies in [0, N)
   float qs[ROWS], qmul[ROWS], qadd[ROWS], m[ROWS], l[ROWS], acc[ROWS][NC];
-  bool qp[ROWS], qm[ROWS];
+  bool qp[ROWS], qm[ROWS], live[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    const int q = q0 + warp * ROWS + r;
-    qs[r] = qv[q * 4 + 0];
-    qmul[r] = qv[q * 4 + 1];
-    qadd[r] = qv[q * 4 + 2] + qv[q * 4 + 3];
+    const int i = warp * ROWS + r;
+    const int q = q0 + i;
+    live[r] = i >= 1 && i <= TQ && q < N;
+    qs[r] = live[r] ? qv[q * 4 + 0] : 0.f;
+    qmul[r] = live[r] ? qv[q * 4 + 1] : 0.f;
+    qadd[r] = live[r] ? qv[q * 4 + 2] + qv[q * 4 + 3] : 0.f;
     m[r] = -INFINITY;
     l[r] = 0.f;
-    const int col = q % W;
+    const int col = col_of(q, W);
     qp[r] = col != W - 1;
     qm[r] = col != 0;
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < N; k0 += TK) {
-    for (int e = tid; e < TK * DP; e += NT) {
-      const int j = e / DP, d = e % DP;
-      Vs[e] = d < D ? v[(size_t)(k0 + j) * D + d] : 0.f;
+  for (int kt = 0; kt * TQ < N; ++kt) {
+    const int k0 = kt * TQ - 1;  // global position of tile column 0
+    for (int e = tid; e < EXT * DP; e += NT) {
+      const int j = e / DP, d = e % DP, k = k0 + j;
+      Vs[e] = (d < D && k >= 0 && k < N) ? v[(size_t)k * D + d] : 0.f;
     }
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    // S3 over the tile and its halo: chunks of KC channels staged k-major,
+    // the next chunk fetched into registers while this one is multiplied;
+    // each thread owns rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3
+    constexpr int PF = EXT * KC / NT;
+    const int kk = tid % KC, row0 = tid / KC;  // element tid + NT i
+    float rf[PF], rg[PF];
+    auto fetch = [&](int c0) {
+      const int c = c0 + kk;
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const int row = row0 + (NT / KC) * i, q = q0 + row, kg = k0 + row;
+        rf[i] = (c < C3 && q >= 0 && q < N) ? f3[(size_t)q * C3 + c] : 0.f;
+        rg[i] = (c < C3 && kg >= 0 && kg < N) ? g3[(size_t)kg * C3 + c] : 0.f;
+      }
+    };
+    fetch(0);
     for (int c0 = 0; c0 < C3; c0 += KC) {
-      for (int e = tid; e < TQ * KC; e += NT) {
-        const int row = e / KC, k = e % KC, c = c0 + k;
-        Fs[row * LDF + k] = c < C3 ? f3[(size_t)(q0 + row) * C3 + c] : 0.f;
-        Gs[row * LDF + k] = c < C3 ? g3[(size_t)(k0 + row) * C3 + c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        Ft[kk * LDT + row0 + (NT / KC) * i] = rf[i];
+        Gt[kk * LDT + row0 + (NT / KC) * i] = rg[i];
       }
       __syncthreads();
+      if (c0 + KC < C3) fetch(c0 + KC);
 #pragma unroll 8
       for (int k = 0; k < KC; ++k) {
-        float a[4], g[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Fs[(ty + 16 * i) * LDF + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) g[j] = Gs[(tx + 16 * j) * LDF + k];
+        const float4 a = *reinterpret_cast<const float4*>(&Ft[k * LDT + 4 * ty]);
+        const float4 g = *reinterpret_cast<const float4*>(&Gt[k * LDT + 4 * tx]);
+        const float av[4] = {a.x, a.y, a.z, a.w}, gv[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], g[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], gv[j], s[i][j]);
       }
       __syncthreads();
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) S[(ty + 16 * i) * LDS + tx + 16 * j] = s[i][j];
+      *reinterpret_cast<float4*>(&S[(4 * ty + i) * LDS + 4 * tx]) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
     __syncthreads();
 
-    // logits and the online softmax: warp w owns query rows w*ROWS.. and
-    // lanes own key columns lane and lane + 32
+    // logits and the online softmax: warp w owns tile rows w*ROWS.. and
+    // lanes own tile columns lane and lane + 32; halo columns and columns
+    // past N take no probability
     float ks[2], kmul[2], kadd[2];
-    bool kp[2], km[2];
+    bool kp[2], km[2], klive[2];
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
-      const int kg = k0 + lane + 32 * t;
-      ks[t] = kv[kg];
-      kmul[t] = kv[N + kg];
-      kadd[t] = kv[2 * N + kg];
-      const int col = kg % W;
+      const int j = lane + 32 * t;
+      const int kg = k0 + j;
+      klive[t] = j >= 1 && j <= TQ && kg < N;
+      ks[t] = klive[t] ? kv[kg] : 0.f;
+      kmul[t] = klive[t] ? kv[N + kg] : 0.f;
+      kadd[t] = klive[t] ? kv[2 * N + kg] : 0.f;
+      const int col = col_of(kg, W);
       kp[t] = col != W - 1;
       km[t] = col != 0;
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int i = warp * ROWS + r;
+      if (!live[r]) {  // warp-uniform
+        P[i * LDS + lane] = 0.f;
+        P[i * LDS + lane + 32] = 0.f;
+        continue;
+      }
       float lg[2];
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int j = lane + 32 * t;
+        if (!klive[t]) {
+          lg[t] = -INFINITY;
+          continue;
+        }
         float raw = S[i * LDS + j];
         if (qp[r] && kp[t]) raw += S[(i + 1) * LDS + j + 1];
         if (qm[r] && km[t]) raw += S[(i - 1) * LDS + j - 1];
@@ -172,7 +213,7 @@ __global__ void __launch_bounds__(NT)
       for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
     }
     __syncwarp();
-    for (int j = 0; j < TK; ++j) {
+    for (int j = 0; j < EXT; ++j) {
       float vv[NC];
 #pragma unroll
       for (int c = 0; c < NC; ++c) vv[c] = Vs[j * DP + lane + 32 * c];
@@ -188,6 +229,7 @@ __global__ void __launch_bounds__(NT)
 
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
+    if (!live[r]) continue;
     const int q = q0 + warp * ROWS + r;
     const float inv = 1.f / l[r];
 #pragma unroll
@@ -203,11 +245,11 @@ template <int NC>
 int launch(const float* f3, const float* g3, const float* v, const float* qv,
            const float* kv, float* o, float* lse, int B, int N, int C3, int D,
            int W, cudaStream_t s) {
-  const int smem = (2 * TQ * LDF + 2 * TQ * LDS + TK * 32 * NC) * 4;
+  const int smem = (2 * KC * LDT + 2 * EXT * LDS + EXT * 32 * NC) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       shift9_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(N / TQ, B);
+  dim3 grid((N + TQ - 1) / TQ, B);
   shift9_fwd_kernel<NC><<<grid, NT, smem, s>>>(f3, g3, v, qv, kv, o, lse, N,
                                                C3, D, W);
   return static_cast<int>(cudaGetLastError());
@@ -215,12 +257,11 @@ int launch(const float* f3, const float* g3, const float* v, const float* qv,
 
 }  // namespace
 
-extern "C" int cocosnet_shift9_tile() { return TQ; }
 extern "C" int cocosnet_shift9_max_d() { return 32 * 8; }
 
 // f3, g3: (B, N, C3), v: (B, N, D), qv: (B, N, 4), kv: (B, 4, N), all f32
-// and contiguous; o: (B, N, D), lse: (B, N). N % 64 == 0, 64 % W == 0,
-// D <= 256 (the wrapper checks). Returns the cudaError_t of the launch.
+// and contiguous; o: (B, N, D), lse: (B, N). N is H * W for the image width
+// W; D <= 256 (the wrapper checks). Returns the cudaError_t of the launch.
 extern "C" int cocosnet_shift9_fwd(const void* f3, const void* g3,
                                    const void* v, const void* qv,
                                    const void* kv, void* o, void* lse, int B,

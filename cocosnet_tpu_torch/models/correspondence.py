@@ -1,11 +1,12 @@
 """Cross-domain correspondence network, flagship branch.
 
 Counterpart of cocosnet_tpu/models/correspondence.py `CorrespondenceNet`
-for inference at match_kernel=3: two domain adaptors, the channel L2 norm,
-the (maskmix) residual stack, the theta/phi 1x1 convs and one fused
-3x3-unfold correlation + softmax + warp (ops/shift9.attend_shift9) whose
-values are the exemplar colors and, with the direct mask loss type, the
-exemplar's one-hot map.
+at match_kernel=3: two domain adaptors, the channel L2 norm, the (maskmix)
+residual stack, the theta/phi 1x1 convs and one fused 3x3-unfold
+correlation + softmax + warp (ops/shift9.attend_shift9) whose values are
+the exemplar colors and, with the direct mask loss type, the exemplar's
+one-hot map. In train mode, given the real image, it also returns the
+domain-alignment loss `loss_novgg_featpair` (correspondence.py:149-153).
 """
 
 from __future__ import annotations
@@ -48,12 +49,14 @@ class CorrespondenceNet(tnn.Module):
 
     def forward(self, ref_img: torch.Tensor, seg_map: torch.Tensor,
                 ref_seg_map: torch.Tensor, temperature: float = 0.01,
-                seg_label: Optional[torch.Tensor] = None
+                seg_label: Optional[torch.Tensor] = None,
+                real_img: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """ref_img (B, H, W, 3); seg_map / ref_seg_map (B, H, W,
         semantic_nc) one-hot maps; seg_label, when given, the integer map
         whose one-hot IS seg_map: the seg adaptor's first conv then reads
-        the labels (conv3x3_onehot) instead of the dense one-hot."""
+        the labels (conv3x3_onehot) instead of the dense one-hot; real_img
+        (B, H, W, 3), in train mode, the image the label map depicts."""
         opt = self.opt
         out: Dict[str, torch.Tensor] = {}
         b, ih, iw, _ = ref_img.shape
@@ -70,6 +73,12 @@ class CorrespondenceNet(tnn.Module):
                                                              ref_img))
         out["adaptive_feature_seg"] = feat_seg
         out["adaptive_feature_img"] = feat_img
+        if (self.training and opt.novgg_featpair > 0
+                and real_img is not None):
+            feat_pair = feature_normalize(self.adaptive_model_img(real_img,
+                                                                  real_img))
+            out["loss_novgg_featpair"] = ((feat_seg - feat_pair).abs().mean()
+                                          * opt.novgg_featpair)
 
         seg_small = resize_nearest(seg_map, fh, fw)
         ref_seg_small = resize_nearest(ref_seg_map, fh, fw)

@@ -4,13 +4,19 @@ the hand-written 3x3 kernels, spectral-norm / equalized-LR weights, PReLU.
 Counterpart of cocosnet_tpu/nn/layers.py. Activations are NHWC, conv
 kernels HWIO at `conv2d`, parameters f32 in the reference's state-dict
 names and OIHW shapes (`weight`, `bias`; `weight_orig`, `weight_u`,
-`weight_v` under spectral norm). Spectral norm is eval-only here: sigma =
-u . (W v) from the stored u and v, with no power iteration, exactly
-torch.nn.utils.spectral_norm in eval mode.
+`weight_v` under spectral norm). Spectral norm follows
+torch.nn.utils.spectral_norm: a module in train mode advances one power
+iteration per forward and stores u and v; in eval mode sigma = u . (W v)
+comes from the stored u and v, unchanged.
+
+Inside `training()` every conv runs as F.conv2d, as the JAX package traces
+a train step with its Pallas convs gated off (pallas_conv.training_trace):
+the hand-written conv kernels have no backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -33,6 +39,23 @@ def set_compute_dtype(dtype) -> None:
 
 def get_compute_dtype():
     return _COMPUTE_DTYPE
+
+
+_IN_TRAINING = False
+
+
+@contextlib.contextmanager
+def training():
+    """The dynamic extent of a train step: `conv2d` sends every conv to
+    F.conv2d (a OneHotLabels input densified, instance-norm moments from
+    torch on the conv output)."""
+    global _IN_TRAINING
+    prev = _IN_TRAINING
+    _IN_TRAINING = True
+    try:
+        yield
+    finally:
+        _IN_TRAINING = prev
 
 
 class OneHotLabels:
@@ -95,25 +118,27 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
     With want_stats returns (y, mean, var): the instance-norm moments of y,
     f32 (B, 1, 1, Cout), biased variance.
 
-    Routing, as the JAX package routes to its Pallas kernels: a OneHotLabels
-    input of a 3x3 stride-1 zero-padded conv goes to conv3x3_onehot; a 3x3
+    Routing, as the JAX package routes to its Pallas kernels: inside
+    `training()` everything goes to F.conv2d; otherwise a OneHotLabels
+    input of a 3x3 stride-1 zero-padded conv goes to conv3x3_onehot, a 3x3
     conv of `fused_conv_supported` shape to conv3x3_fused_stats (with
-    want_stats) or conv3x3_fused; everything else to F.conv2d."""
+    want_stats) or conv3x3_fused, and everything else to F.conv2d."""
     if _COMPUTE_DTYPE is not None:
         x = x.to(_COMPUTE_DTYPE)
         kernel = kernel.to(_COMPUTE_DTYPE)
     if reflect and (padding != 0 or stride != 1):
         raise ValueError("a reflect ring takes padding=0 and stride=1")
     if isinstance(x, OneHotLabels):
-        if (tuple(kernel.shape[:2]) == (3, 3) and stride == 1
-                and padding == 1 and not reflect):
+        if (not _IN_TRAINING and tuple(kernel.shape[:2]) == (3, 3)
+                and stride == 1 and padding == 1 and not reflect):
             return conv3x3_onehot(x.labels, kernel, bias, dtype=x.dtype,
                                   want_stats=want_stats)
         return conv2d(x.dense(), kernel, bias, stride=stride,
                       padding=padding, reflect=reflect,
                       want_stats=want_stats)
-    fused = fused_conv_supported(x.shape, kernel.shape, stride=stride,
-                                 padding=1 if reflect else padding)
+    fused = not _IN_TRAINING and fused_conv_supported(
+        x.shape, kernel.shape, stride=stride,
+        padding=1 if reflect else padding)
     if fused and want_stats:
         return conv3x3_fused_stats(x, kernel, bias, reflect=reflect)
     if fused:
@@ -150,9 +175,13 @@ def xavier_normal_(w: torch.Tensor, gain: float,
         w.copy_(torch.randn(w.shape, generator=generator) * std)
 
 
-def _unit_normal(n: int, generator: torch.Generator) -> torch.Tensor:
-    v = torch.randn(n, generator=generator)
+def _l2_normalize(v: torch.Tensor) -> torch.Tensor:
+    """v / (||v|| + 1e-12), the JAX package's _l2_normalize."""
     return v / (v.norm() + 1e-12)
+
+
+def _unit_normal(n: int, generator: torch.Generator) -> torch.Tensor:
+    return _l2_normalize(torch.randn(n, generator=generator))
 
 
 class Conv2d(tnn.Module):
@@ -196,15 +225,23 @@ class Conv2d(tnn.Module):
                 self.weight_v.copy_(_unit_normal(w[0].numel(), generator))
 
     def effective_weight(self) -> torch.Tensor:
-        """The OIHW weight the conv applies."""
+        """The OIHW weight the conv applies. Under spectral norm in train
+        mode one power iteration, v = normalize(W^T u), u = normalize(W v),
+        runs first and stores u and v (without gradient, as in torch)."""
         if self.weight_norm is None:
             return self.weight
         w = self.weight_orig
         if self.weight_norm == "equal_lr":
             return w * (2.0 / w[0].numel()) ** 0.5
-        sigma = torch.dot(self.weight_u, w.reshape(w.shape[0], -1)
-                          @ self.weight_v)
-        return w / sigma
+        wm = w.reshape(w.shape[0], -1)
+        u, v = self.weight_u, self.weight_v
+        if self.training:
+            with torch.no_grad():
+                v = _l2_normalize(wm.t() @ u)
+                u = _l2_normalize(wm @ v)
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        return w / torch.dot(u, wm @ v)
 
     def forward(self, x, want_stats: bool = False):
         return conv2d(x, self.effective_weight().permute(2, 3, 1, 0),

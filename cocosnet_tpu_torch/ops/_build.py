@@ -22,7 +22,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
-SOURCES = ("shift9_fwd", "conv3x3", "conv3x3_onehot")
+SOURCES = ("shift9_fwd", "shift9_bwd", "conv3x3", "conv3x3_onehot")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -33,8 +33,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "shift9_fwd": {
         "cocosnet_shift9_fwd": [_P] * 7 + [_I] * 5 + [_P],
-        "cocosnet_shift9_tile": [],
         "cocosnet_shift9_max_d": [],
+    },
+    "shift9_bwd": {
+        "cocosnet_shift9_bwd": [_P] * 13 + [_I] * 5 + [_P],
+        "cocosnet_shift9_bwd_smem": [_I, _I],
     },
     "conv3x3": {
         "cocosnet_conv3x3": [_P] * 5 + [_I] * 7 + [_F, _I, _P],

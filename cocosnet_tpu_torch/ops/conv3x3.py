@@ -6,7 +6,8 @@ Counterpart of cocosnet_tpu/ops/pallas_conv.py `conv3x3_fused`,
 NHWC activations, HWIO kernels, f32 bias, output in the activation dtype,
 f32 accumulation. On a CUDA tensor each wrapper launches its hand-written
 kernel (csrc/conv3x3.cu, csrc/conv3x3_onehot.cu) and counts the launch; on
-a CPU tensor it runs the plain PyTorch version of the same function.
+a CPU tensor it runs the plain PyTorch version of the same function. The
+kernels have no backward, so a CUDA input that requires grad raises.
 
 The statistics are the kernel's: per-(sample, channel) mean and biased
 variance of the f32 output before rounding, the variance single-pass,
@@ -105,6 +106,15 @@ def _no_kernel(what, x):
         raise ValueError(f"{what}: no kernel for device {x.device}")
 
 
+def _refuse_grad(what, *ts):
+    """The kernels have no backward: a CUDA input that requires grad
+    raises rather than come back without a grad_fn."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; run "
+                           "training convs inside nn.layers.training()")
+
+
 def conv3x3_fused(x: torch.Tensor, kernel: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *,
                   reflect: bool = False,
@@ -113,6 +123,7 @@ def conv3x3_fused(x: torch.Tensor, kernel: torch.Tensor,
     or (reflect=True) a ReflectionPad2d(1) ring and an optional fused
     LeakyReLU. Output dtype follows x."""
     if x.is_cuda:
+        _refuse_grad("conv3x3_fused", x, kernel, bias)
         out = _conv3x3_kernel(x, kernel, bias, reflect, leaky, False)
         conv3x3_fused.launches += 1
         return out
@@ -128,6 +139,7 @@ def conv3x3_fused_stats(x: torch.Tensor, kernel: torch.Tensor,
     """conv3x3_fused plus the instance-norm moments of its f32 output:
     returns (out, mean, var), mean/var f32 (B, 1, 1, Cout)."""
     if x.is_cuda:
+        _refuse_grad("conv3x3_fused_stats", x, kernel, bias)
         res = _conv3x3_kernel(x, kernel, bias, reflect, leaky, True)
         conv3x3_fused_stats.launches += 1
         return res
@@ -197,6 +209,7 @@ def conv3x3_onehot(labels: torch.Tensor, kernel: torch.Tensor,
     (default kernel.dtype). With want_stats returns (out, mean, var)."""
     dtype = dtype or kernel.dtype
     if labels.is_cuda:
+        _refuse_grad("conv3x3_onehot", kernel, bias)
         res = _onehot_kernel(labels, kernel, bias, dtype, leaky, want_stats)
         conv3x3_onehot.launches += 1
         return res

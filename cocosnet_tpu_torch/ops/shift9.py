@@ -1,12 +1,17 @@
-"""Fused 3x3-unfold correlation + softmax + warp (match_kernel=3), forward.
+"""Fused 3x3-unfold correlation + softmax + warp (match_kernel=3), forward
+and backward.
 
 Counterpart of cocosnet_tpu/ops/pallas_shift9.py `attend_shift9`. The
-wrapper prepares, in PyTorch, what the kernel consumes (pallas_shift9.py:
+wrapper prepares, in PyTorch, what the kernels consume (pallas_shift9.py:
 407-472): the dy taps folded into channels (F3/G3, 3C wide) and the rank-1
 centering/normalization terms qv (B, N, 4: qs, qmul, qadd, cadd) and
-kv (B, 4, N: ks, kmul, kadd, 0), 1/tau folded into qs. The core then runs
-as the hand-written CUDA kernel csrc/shift9_fwd.cu on a CUDA tensor, or as
-its plain PyTorch version (`shift9_core_plain`) on a CPU tensor.
+kv (B, 4, N: ks, kmul, kadd, 0), 1/tau folded into qs. The core is a
+torch.autograd.Function: its forward runs the hand-written CUDA kernel
+csrc/shift9_fwd.cu on a CUDA tensor, or its plain PyTorch version
+(`shift9_core_plain`) on a CPU tensor, and saves the row logsumexp; its
+backward runs csrc/shift9_bwd.cu, or `shift9_bwd_plain` on the CPU. The
+gradients of the raw features flow on through `shift9_inputs` by ordinary
+autograd, as the JAX package's prep is XLA autodiff.
 """
 
 from __future__ import annotations
@@ -17,6 +22,9 @@ from cocosnet_tpu_torch.ops import _build
 from cocosnet_tpu_torch.ops.corr_shift import (_cross_map, _pad_hw,
                                                _safe_norm, _shift_means,
                                                _unfold_stats)
+
+# shared memory a block may opt into on Hopper (232,448 bytes)
+_MAX_SMEM = 232448
 
 
 def _row_stack3(x: torch.Tensor) -> torch.Tensor:
@@ -69,25 +77,84 @@ def shift9_inputs(f: torch.Tensor, g: torch.Tensor, tau: float,
     return f3.contiguous(), g3.contiguous(), qv.contiguous(), kv.contiguous()
 
 
-def shift9_core_plain(f3, g3, v, qv, kv, w: int):
-    """Plain PyTorch version of the kernel: (o (B, N, D), lse (B, N))."""
-    s3 = torch.matmul(f3, g3.transpose(1, 2))            # (B, N, N)
-    n = s3.shape[1]
-    col = torch.arange(n, device=s3.device) % w
-    fp = (col != w - 1).to(s3.dtype)                     # dx = +1 valid
-    fm = (col != 0).to(s3.dtype)                         # dx = -1 valid
+def _col_masks(n: int, w: int, device, dtype):
+    """(n,) 0/1 masks of the dx = +1 and dx = -1 shifts: +1 is invalid at
+    image column W-1, -1 at column 0 (the unfold's zero padding)."""
+    col = torch.arange(n, device=device) % w
+    return (col != w - 1).to(dtype), (col != 0).to(dtype)
+
+
+def _shift_sum(s3: torch.Tensor, w: int) -> torch.Tensor:
+    """raw(i, j) = S3 + m+ S3(i+1, j+1) + m- S3(i-1, j-1) on (B, N, N)."""
+    fp, fm = _col_masks(s3.shape[1], w, s3.device, s3.dtype)
     plus = torch.zeros_like(s3)
-    plus[:, :-1, :-1] = s3[:, 1:, 1:]                    # S3(i+1, j+1)
+    plus[:, :-1, :-1] = s3[:, 1:, 1:]
     minus = torch.zeros_like(s3)
-    minus[:, 1:, 1:] = s3[:, :-1, :-1]                   # S3(i-1, j-1)
-    raw = (s3 + fp[:, None] * fp[None, :] * plus
-           + fm[:, None] * fm[None, :] * minus)
+    minus[:, 1:, 1:] = s3[:, :-1, :-1]
+    return (s3 + fp[:, None] * fp[None, :] * plus
+            + fm[:, None] * fm[None, :] * minus)
+
+
+def _unshift_sum(da: torch.Tensor, w: int) -> torch.Tensor:
+    """Adjoint of _shift_sum: dS3 = dA + (m+ dA)(i-1, j-1) + (m- dA)(i+1,
+    j+1) (pallas_shift9.py:122-129)."""
+    fp, fm = _col_masks(da.shape[1], w, da.device, da.dtype)
+    back = da.clone()
+    back[:, 1:, 1:] += (fp[:, None] * fp[None, :] * da)[:, :-1, :-1]
+    back[:, :-1, :-1] += (fm[:, None] * fm[None, :] * da)[:, 1:, 1:]
+    return back
+
+
+def _logits(raw, qv, kv):
     qs, qmul, qadd, cadd = (qv[..., i:i + 1] for i in range(4))
     ks, kmul, kadd = (kv[:, i:i + 1, :] for i in range(3))
-    logits = (raw - qmul * kmul + qadd + kadd + cadd) * qs * ks
+    return (raw - qmul * kmul + qadd + kadd + cadd) * qs * ks
+
+
+def shift9_core_plain(f3, g3, v, qv, kv, w: int):
+    """Plain PyTorch version of the forward kernel: (o (B, N, D),
+    lse (B, N))."""
+    logits = _logits(_shift_sum(torch.matmul(f3, g3.transpose(1, 2)), w),
+                     qv, kv)
     lse = torch.logsumexp(logits, dim=-1)
     o = torch.matmul(torch.exp(logits - lse[..., None]), v)
     return o, lse
+
+
+def shift9_bwd_plain(f3, g3, v, qv, kv, lse, go, dd, w: int):
+    """Plain PyTorch version of the backward kernel, the math of
+    pallas_shift9.py `_dq_kernel` and `_dk_kernel` on whole (B, N, N)
+    matrices: from the saved lse, the output gradient go (B, N, D) and
+    dd = rowsum(go * o) (B, N), returns dF3 (B, N, 3C), dqv (B, N, 4),
+    dG3 (B, N, 3C), dkv (B, 4, N) and dV (B, N, D)."""
+    logits = _logits(_shift_sum(torch.matmul(f3, g3.transpose(1, 2)), w),
+                     qv, kv)
+    p = torch.exp(logits - lse[..., None])
+    gl = p * (torch.matmul(go, v.transpose(1, 2)) - dd[..., None])
+    qs, qmul = qv[..., 0:1], qv[..., 1:2]
+    ks, kmul = kv[:, 0:1, :], kv[:, 1:2, :]
+    da = gl * qs * ks                                    # d(raw)
+    gll = gl * logits
+    dqadd = da.sum(-1)
+    # the cadd gradient is qadd's (pallas_shift9.py:249)
+    dqv = torch.stack([gll.sum(-1) / qs[..., 0], -(da * kmul).sum(-1),
+                       dqadd, dqadd], -1)
+    dkadd = da.sum(1)
+    dkv = torch.stack([gll.sum(1) / ks[:, 0], -(da * qmul).sum(1), dkadd,
+                       torch.zeros_like(dkadd)], 1)
+    ds3 = _unshift_sum(da, w)
+    df3 = torch.matmul(ds3, g3)
+    dg3 = torch.matmul(ds3.transpose(1, 2), f3)
+    dv = torch.matmul(p.transpose(1, 2), go)
+    return df3, dqv, dg3, dkv, dv
+
+
+def _check_f32(what, *ts):
+    for t in ts:
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != ts[0].device:
+            raise ValueError(f"{what} takes contiguous f32 tensors on one "
+                             "device")
 
 
 def shift9_core_kernel(f3, g3, v, qv, kv, w: int):
@@ -95,16 +162,11 @@ def shift9_core_kernel(f3, g3, v, qv, kv, w: int):
     lib = _build.library("shift9_fwd")
     b, n, c3 = f3.shape
     d = v.shape[-1]
-    tile = lib.cocosnet_shift9_tile()
-    if n % tile or tile % w or d > lib.cocosnet_shift9_max_d():
-        raise ValueError(f"shift9 kernel takes N % {tile} == 0, W dividing "
-                         f"{tile} and D <= {lib.cocosnet_shift9_max_d()}; "
-                         f"got N={n}, W={w}, D={d}")
-    for t in (f3, g3, v, qv, kv):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != f3.device:
-            raise ValueError("shift9 kernel takes contiguous f32 tensors on "
-                             "one device")
+    if n % w or d > lib.cocosnet_shift9_max_d():
+        raise ValueError(f"shift9 kernel takes N = H * W and D <= "
+                         f"{lib.cocosnet_shift9_max_d()}; got N={n}, W={w}, "
+                         f"D={d}")
+    _check_f32("shift9 kernel", f3, g3, v, qv, kv)
     o = torch.empty((b, n, d), dtype=torch.float32, device=f3.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=f3.device)
     with torch.cuda.device(f3.device):
@@ -116,24 +178,93 @@ def shift9_core_kernel(f3, g3, v, qv, kv, w: int):
     return o, lse
 
 
+def shift9_bwd_kernel(f3, g3, v, qv, kv, lse, go, dd, w: int):
+    """Launches csrc/shift9_bwd.cu (its query pass, then its key pass):
+    the outputs of shift9_bwd_plain."""
+    lib = _build.library("shift9_bwd")
+    b, n, c3 = f3.shape
+    d = v.shape[-1]
+    smem = lib.cocosnet_shift9_bwd_smem(c3, d)
+    if n % w or smem > _MAX_SMEM:
+        raise ValueError(f"shift9 backward kernel takes N = H * W and a "
+                         f"3C x D that fits shared memory; got N={n}, W={w}, "
+                         f"3C={c3}, D={d} ({smem} bytes)")
+    # the key side's rank-1 terms per position, its unused fourth row zero
+    kvt = torch.cat([kv[:, :3].transpose(1, 2),
+                     torch.zeros_like(kv[:, :1].transpose(1, 2))],
+                    -1).contiguous()
+    _check_f32("shift9 backward kernel", f3, g3, v, qv, kvt, lse, go, dd)
+    df3 = torch.empty_like(f3)
+    dg3 = torch.empty_like(g3)
+    dv = torch.empty_like(v)
+    dq3 = torch.empty((b, n, 3), dtype=torch.float32, device=f3.device)
+    dk3 = torch.empty_like(dq3)
+    with torch.cuda.device(f3.device):
+        err = lib.cocosnet_shift9_bwd(
+            f3.data_ptr(), g3.data_ptr(), v.data_ptr(), go.data_ptr(),
+            qv.data_ptr(), kvt.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+            df3.data_ptr(), dq3.data_ptr(), dg3.data_ptr(), dk3.data_ptr(),
+            dv.data_ptr(), b, n, c3, d, w,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "shift9_bwd")
+    dqv = torch.cat([dq3, dq3[..., 2:3]], -1)
+    dkv = torch.cat([dk3, torch.zeros_like(dk3[..., :1])], -1).transpose(1, 2)
+    return df3, dqv, dg3, dkv.contiguous(), dv
+
+
+def attend_shift9_backward(f3, g3, v, qv, kv, lse, go, dd, w: int):
+    """The gradients of the shift9 core (see shift9_bwd_plain): CUDA
+    tensors launch csrc/shift9_bwd.cu, CPU tensors run the plain
+    version."""
+    if f3.is_cuda:
+        res = shift9_bwd_kernel(f3, g3, v, qv, kv, lse, go, dd, w)
+        attend_shift9_backward.launches += 1
+        return res
+    if f3.device.type != "cpu":
+        raise ValueError(f"attend_shift9: no kernel for device {f3.device}")
+    attend_shift9_backward.plain_calls += 1
+    return shift9_bwd_plain(f3, g3, v, qv, kv, lse, go, dd, w)
+
+
+class _Shift9Core(torch.autograd.Function):
+    """o = softmax(logits) @ v of the kernel's inputs, with the backward
+    on the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, f3, g3, v, qv, kv, w):
+        if f3.is_cuda:
+            o, lse = shift9_core_kernel(f3, g3, v, qv, kv, w)
+            attend_shift9.launches += 1
+        else:
+            o, lse = shift9_core_plain(f3, g3, v, qv, kv, w)
+            attend_shift9.plain_calls += 1
+        ctx.save_for_backward(f3, g3, v, qv, kv, o, lse)
+        ctx.w = w
+        return o
+
+    @staticmethod
+    def backward(ctx, go):
+        f3, g3, v, qv, kv, o, lse = ctx.saved_tensors
+        go = go.float().contiguous()
+        dd = (go * o).sum(-1)
+        df3, dqv, dg3, dkv, dv = attend_shift9_backward(
+            f3, g3, v, qv, kv, lse, go, dd, ctx.w)
+        return df3, dg3, dv, dqv, dkv, None
+
+
 def attend_shift9(f: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                   tau: float, pono_c: bool = True) -> torch.Tensor:
     """Fused softmax(corr / tau) @ v over centered, L2-normalized 3x3-unfold
     descriptors of the raw (B, H, W, C) theta/phi features; v is (B, H*W, D).
-    Returns (B, H*W, D) f32. CUDA tensors run the kernel, CPU tensors its
-    plain version."""
+    Returns (B, H*W, D) f32, differentiable in f, g and v. CUDA tensors run
+    the kernels, CPU tensors their plain versions."""
+    if f.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"attend_shift9: no kernel for device {f.device}")
     w = f.shape[2]
     f3, g3, qv, kv = shift9_inputs(f, g, tau, pono_c)
-    v = v.float().contiguous()
-    if f.is_cuda:
-        o, _ = shift9_core_kernel(f3, g3, v, qv, kv, w)
-        attend_shift9.launches += 1
-        return o
-    if f.device.type != "cpu":
-        raise ValueError(f"attend_shift9: no kernel for device {f.device}")
-    attend_shift9.plain_calls += 1
-    return shift9_core_plain(f3, g3, v, qv, kv, w)[0]
+    return _Shift9Core.apply(f3, g3, v.float().contiguous(), qv, kv, w)
 
 
-attend_shift9.launches = 0
-attend_shift9.plain_calls = 0
+for _fn in (attend_shift9, attend_shift9_backward):
+    _fn.launches = 0
+    _fn.plain_calls = 0

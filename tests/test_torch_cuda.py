@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from cocosnet_tpu_torch.ops import conv3x3 as C
+from cocosnet_tpu_torch.ops import image as I
 from cocosnet_tpu_torch.ops import shift9 as S
 
 pytestmark = pytest.mark.cuda
@@ -86,7 +87,9 @@ def test_onehot_kernel_matches_plain(gen, dtype):
 
 @pytest.mark.parametrize("pono_c", [True, False])
 @pytest.mark.parametrize("shape", [(8, 8, 16, 3), (32, 8, 16, 5),
-                                   (16, 16, 8, 3), (4, 64, 32, 40)])
+                                   (16, 16, 8, 3), (4, 64, 32, 40),
+                                   (4, 128, 16, 7), (5, 13, 8, 4),
+                                   (4, 16, 16, 154)])
 def test_shift9_kernel_matches_plain(gen, shape, pono_c):
     h, w, c, d = shape
     f, g = _r(gen, 2, h, w, c), _r(gen, 2, h, w, c, scale=1.5) + 0.2
@@ -99,11 +102,89 @@ def test_shift9_kernel_matches_plain(gen, shape, pono_c):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("pono_c", [True, False])
+@pytest.mark.parametrize("shape", [(8, 16, 16, 3), (16, 16, 8, 5),
+                                   (4, 128, 16, 7), (2, 128, 32, 40),
+                                   (5, 13, 8, 4), (4, 16, 16, 154)])
+def test_shift9_bwd_kernel_matches_plain(gen, shape, pono_c):
+    """The backward kernel's five outputs against shift9_bwd_plain on the
+    same inputs, each within 1e-4 of its largest magnitude (f32 sums over
+    N in another order, 1/tau = 100 in the logits)."""
+    h, w, c, d = shape
+    f, g = _r(gen, 2, h, w, c), _r(gen, 2, h, w, c, scale=1.5) + 0.2
+    v, go = _r(gen, 2, h * w, d), _r(gen, 2, h * w, d)
+    f3, g3, qv, kv = S.shift9_inputs(f, g, 0.01, pono_c)
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    args = (f3, g3, v, qv, kv, lse, go, (go * o).sum(-1), w)
+    got = S.shift9_bwd_kernel(*args)
+    want = S.shift9_bwd_plain(*args)
+    for name, a, r in zip(("dF3", "dqv", "dG3", "dkv", "dV"), got, want):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=name)
+    assert torch.equal(got[1][..., 3], got[1][..., 2])
+    assert not got[3][:, 3].any()
+
+
+@pytest.mark.parametrize("w", [16, 128])
+def test_shift9_autograd_runs_the_backward_kernel(gen, w):
+    """attend_shift9 on CUDA tensors that require grad: one forward and one
+    backward launch, gradients of f, g and v as the plain versions give
+    them on the CPU."""
+    f = _r(gen, 2, 8, w, 16).requires_grad_()
+    g = (_r(gen, 2, 8, w, 16, scale=1.5) + 0.2).requires_grad_()
+    v = _r(gen, 2, 8 * w, 5).requires_grad_()
+    n = (S.attend_shift9.launches, S.attend_shift9_backward.launches)
+    loss = torch.sin(S.attend_shift9(f, g, v, 0.01)).sum()
+    got = torch.autograd.grad(loss, (f, g, v))
+    assert (S.attend_shift9.launches,
+            S.attend_shift9_backward.launches) == (n[0] + 1, n[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in (f, g, v)]
+    want = torch.autograd.grad(
+        torch.sin(S.attend_shift9(*cpu, 0.01)).sum(), cpu)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a.cpu(), r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()))
+
+
 def test_kernels_raise_on_what_they_do_not_take(gen):
     """A CUDA tensor launches the kernel or raises: no plain fallback."""
-    f = _r(gen, 1, 4, 128, 8)     # W = 128 does not divide the 64-row tile
-    with pytest.raises(ValueError, match="W dividing"):
-        S.attend_shift9(f, f, _r(gen, 1, 512, 3), 0.01)
+    f = _r(gen, 1, 4, 128, 8)     # W = 128 runs; D = 300 > 256 is refused
+    with pytest.raises(ValueError, match="D <= 256"):
+        S.attend_shift9(f, f, _r(gen, 1, 512, 300), 0.01)
     x = _r(gen, 1, 8, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         C.conv3x3_fused(x, _r(gen, 3, 3, 64, 64, dtype=torch.float16))
+
+
+@pytest.mark.parametrize("entry", ["fused", "stats", "onehot"])
+def test_conv_kernels_refuse_inputs_that_require_grad(gen, entry):
+    """The conv kernels have no backward: a CUDA input that requires grad
+    raises instead of coming back without a grad_fn."""
+    k = _r(gen, 3, 3, 64, 64, scale=1 / 24).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        if entry == "onehot":
+            C.conv3x3_onehot(torch.zeros(1, 8, 16, dtype=torch.int32,
+                                         device="cuda"), k)
+        else:
+            fn = C.conv3x3_fused_stats if entry == "stats" else \
+                C.conv3x3_fused
+            fn(_r(gen, 1, 8, 32, 64), k)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 128, 16), (1, 8, 8, 1),
+                                   (2, 7, 9, 5)])
+def test_discriminator_downsample_gradient_matches_the_cpu(gen, shape):
+    """avg_pool_3x3_s2_p1 forward and gradient on the card equal the CPU's
+    (F.avg_pool2d's CUDA backward on an NHWC view got them wrong)."""
+    x = torch.randn(*shape, generator=gen)
+    gy = torch.randn(shape[0], (shape[1] + 1) // 2, (shape[2] + 1) // 2,
+                     shape[3], generator=gen)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        xt = x.clone().to(dev).requires_grad_(True)
+        y = I.avg_pool_3x3_s2_p1(xt)
+        gx, = torch.autograd.grad(y, xt, gy.to(dev))
+        outs.append((y.detach().cpu(), gx.cpu()))
+    (yc, gc), (yg, gg) = outs
+    torch.testing.assert_close(yg, yc, rtol=0, atol=1e-6)
+    torch.testing.assert_close(gg, gc, rtol=0, atol=1e-6)

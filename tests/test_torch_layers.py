@@ -53,6 +53,7 @@ def test_conv2d_module_matches_jax_eval(weight_norm):
                                  jnp.asarray(x)))
     tmod = L.Conv2d(5, 7, 3, padding=1, weight_norm=weight_norm)
     load_flax_variables(tmod, variables)
+    tmod.eval()   # a module in train mode advances its power iteration
     before = {k: v.clone() for k, v in tmod.state_dict().items()}
     with torch.no_grad():
         got = tmod(torch.from_numpy(x)).numpy()
