@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for the
 H100): builds the hand-written kernels, holds each against its plain
-PyTorch version at the flagship shapes, runs a small inference slice and
-the small f32 train path (each loss term's gradient, two steps) on the card
-against the plain versions on the CPU,
-then flagship ADE20k inference (256 px, batch 6, ngf 64, 151 classes, bf16
-policy, seeded random weights) through preprocess_input and inference, and
-flagship training (the same net, ndf 64, batch 8, bf16, EMA, weight_mask
-100) through make_train_step, checking on each path that every kernel of
-that path was launched as often as the routing predicts.
+PyTorch version at the shapes of its main path, runs small inference slices
+and small f32 train paths (each loss term's gradient, two steps) on the
+card against the plain versions on the CPU, then, at full width (256 px,
+ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
+- flagship ADE20k inference (match_kernel 3, batch 6) through
+  preprocess_input and inference, and flagship training (batch 8, EMA,
+  weight_mask 100) through make_train_step;
+- the same flags at match_kernel 1 (the dense-descriptor correlation of the
+  JAX package's parity runs): inference at batch 6, and training at batch 8
+  on both of its routes, the library route (the default) and the kernel
+  route (COCOSNET_PALLAS_MK1_TRAIN=1);
+checking on each path that every kernel of that path was launched as often
+as the routing predicts.
 
     python3 chip_smoke.py
 
 Prints the card's name and power limit, one line per check, a `kernels`
 JSON line (per kernel: its main path and its launches there, max error
 against its plain version, its time, the plain version's, the library
-call's and the least time the card could take), the device time of one
-batch-6 and one batch-1 forward and of one train step by kernel family
-(torch.profiler) with the device's idle share, and as its last line
-{"ok": true, "device": {...}}. Exits non-zero, with no such line, if there
-is no CUDA device, a kernel does not build or disagrees, or an output is
-wrong. Imports nothing of JAX or of the JAX package.
+call's and the least time the card could take), the device time of each
+path's forward or train step by kernel family (torch.profiler) with the
+device's idle share, and as its last line {"ok": true, "device": {...}}.
+Exits non-zero, with no such line, if there is no CUDA device, a kernel
+does not build or disagrees, or an output is wrong. Imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -278,26 +284,179 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def corr_inputs(g, b, n, m, c=256, d=154):
+    """Unit-norm descriptors q (B, N, C) and k (B, M, C), as the
+    correspondence net hands them over, values v (B, M, D) in [-1, 1]."""
+    dev = "cuda"
+    q = torch.nn.functional.normalize(torch.randn(b, n, c, generator=g),
+                                      dim=-1).to(dev)
+    k = torch.nn.functional.normalize(torch.randn(b, m, c, generator=g),
+                                      dim=-1).to(dev)
+    v = torch.rand(b, m, d, generator=g).to(dev) * 2 - 1
+    return q, k, v
+
+
+def sdpa(q, k, v, tau):
+    """The library yardstick: one F.scaled_dot_product_attention call on
+    the same (B, N, C) inputs, as one head. Never on a path of the port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, None], k[:, None], v[:, None], scale=1.0 / tau)[:, 0]
+
+
+def sdpa_backend(fn) -> str:
+    """Which SDPA implementation ran, from the names of the device kernels
+    one call of `fn` launched."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.name.lower() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    for key, what in (("flash", "flash"), ("fmha", "memory-efficient"),
+                      ("efficient", "memory-efficient"), ("cudnn", "cuDNN")):
+        if key in names:
+            return what
+    return "math (matmul + softmax)" if names else "not measured"
+
+
+CORR_TAU = 0.01
+
+
+def check_corr(Kc, g, *, b, n, timed):
+    """The forward kernel against its plain version at (B, N = M, C 256, D
+    154); with `timed`, its record with the plain and the SDPA times."""
+    q, k, v = corr_inputs(g, b, n, n)
+    o, lse = Kc.corr_fwd_kernel(q, k, v, CORR_TAU)
+    po, plse = Kc.corr_fwd_plain(q, k, v, CORR_TAU)
+    torch.cuda.synchronize()
+    # f32 products over C = 256 in another order, times 1/tau = 100 in the
+    # logits; the outputs are convex combinations of v in [-1, 1]
+    err, lerr = _maxerr(o, po), _maxerr(lse, plse)
+    _check(err <= 1e-4 and lerr <= 1e-3,
+           f"corr forward B{b} N=M={n} C256 D154: o err {err:.3g} <= 1e-4, "
+           f"lse err {lerr:.3g} <= 1e-3")
+    del po, plse
+    if not timed:
+        return None
+    ms = time_ms(lambda: Kc.corr_fwd_kernel(q, k, v, CORR_TAU))
+    plain_ms = time_ms(lambda: Kc.corr_fwd_plain(q, k, v, CORR_TAU), runs=5)
+    lib = lambda: sdpa(q, k, v, CORR_TAU)  # noqa: E731
+    library_ms = time_ms(lib, runs=5)
+    backend = sdpa_backend(lib)
+    torch.cuda.empty_cache()
+    flops = 2.0 * b * n * n * (256 + 154)
+    nb = _nbytes(q, k, v, o, lse)
+    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    print(f"     corr forward B{b} N=M={n}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, SDPA f32 ({backend}) {library_ms:.3f} ms, "
+          f"bound {bms:.3f} ms ({by}, {flops / 1e9:.2f} GFLOP)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms,
+                library=f"F.scaled_dot_product_attention f32, {backend}")
+
+
+def check_corr_bwd(Kc, g, *, b, n, timed):
+    """The backward kernel against its plain version at (B, N = M, C 256,
+    D 154), from the kernel forward's lse and a random output gradient; with
+    `timed`, its record, the library time being SDPA's forward and
+    backward."""
+    q, k, v = corr_inputs(g, b, n, n)
+    go = torch.randn(b, n, 154, generator=g).to("cuda")
+    o, lse = Kc.corr_fwd_kernel(q, k, v, CORR_TAU)
+    args = (q, k, v, CORR_TAU, lse, go, (go * o).sum(-1))
+    got = Kc.corr_bwd_kernel(*args)
+    want = Kc.corr_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = [_maxerr(a, r) for a, r in zip(got, want)]
+    scales = [float(r.abs().max()) for r in want]
+    del want
+    torch.cuda.empty_cache()
+    _check(all(e <= BWD_REL_TOL * s for e, s in zip(errs, scales)),
+           f"corr backward B{b} N=M={n} C256 D154: max err / max |out| "
+           + ", ".join(f"{nm} {e:.3g}/{s:.3g}"
+                       for nm, e, s in zip(("dq", "dk", "dv"), errs, scales))
+           + f" <= {BWD_REL_TOL:g} (f32 sums reordered, 1/tau in the logits)")
+    if not timed:
+        return None
+    ms = time_ms(lambda: Kc.corr_bwd_kernel(*args), runs=5)
+    plain_ms = time_ms(lambda: Kc.corr_bwd_plain(*args), runs=3)
+    torch.cuda.empty_cache()
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def lib():
+        torch.autograd.grad(sdpa(qr, kr, vr, CORR_TAU), (qr, kr, vr), go)
+
+    library_ms = time_ms(lib, runs=3)
+    backend = sdpa_backend(lib)
+    torch.cuda.empty_cache()
+    # the function needs S = q k^T and dP = gO v^T once each, then dq, dk
+    # and dv: 2 B N M (3 C + 2 D). The two-pass design recomputes S and dP
+    # in its key pass, 2 B N M (4 C + 3 D); printed beside the bound
+    flops = 2.0 * b * n * n * (3 * 256 + 2 * 154)
+    design_flops = 2.0 * b * n * n * (4 * 256 + 3 * 154)
+    nb = _nbytes(*args[:3], *args[4:], *got)
+    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    print(f"     corr backward B{b} N=M={n}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, SDPA f32 forward + backward ({backend}) "
+          f"{library_ms:.3f} ms, bound {bms:.3f} ms ({by}, "
+          f"{flops / 1e9:.1f} GFLOP; the two-pass design does "
+          f"{design_flops / 1e9:.1f}, {1e3 * design_flops / F32_FLOP_S:.3f}"
+          f" ms)", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms,
+                library=f"F.scaled_dot_product_attention f32 forward + "
+                        f"backward, {backend}")
+
+
 # ------------------------------------------------------------------ phase 3
 
 def _counted():
-    """The kernel entries of the flagship paths, by name."""
+    """The kernel entries of the paths, by name."""
     from cocosnet_tpu_torch.ops import conv3x3 as C
+    from cocosnet_tpu_torch.ops import corr as Kc
     from cocosnet_tpu_torch.ops import shift9 as S
     return {"attend_shift9": S.attend_shift9,
             "attend_shift9_backward": S.attend_shift9_backward,
+            "attend_corr": Kc.attend_corr,
+            "attend_corr_backward": Kc.attend_corr_backward,
             "conv3x3_fused": C.conv3x3_fused,
             "conv3x3_fused_stats": C.conv3x3_fused_stats,
             "conv3x3_onehot": C.conv3x3_onehot}
 
 
-INFERENCE_KERNELS = ("attend_shift9", "conv3x3_fused", "conv3x3_fused_stats",
-                     "conv3x3_onehot")
-# a train step runs every conv as a library conv (nn.layers.training) and
-# the shift9 core forward and backward on their kernels
-TRAIN_LAUNCHES = {"attend_shift9": 1, "attend_shift9_backward": 1,
-                  "conv3x3_fused": 0, "conv3x3_fused_stats": 0,
-                  "conv3x3_onehot": 0}
+def _launches(**kw) -> dict:
+    """Launches per forward or step: the named counts, every other 0."""
+    return {k: kw.get(k, 0) for k in _counted()}
+
+
+CONVS = dict(conv3x3_fused=80, conv3x3_fused_stats=20, conv3x3_onehot=1)
+# per flagship-width inference forward, by match_kernel
+INFERENCE_LAUNCHES = {3: _launches(attend_shift9=1, **CONVS),
+                      1: _launches(attend_corr=1, **CONVS)}
+# per train step: every conv is a library conv (nn.layers.training); the
+# shift9 core runs its kernels forward and backward; match_kernel 1 runs
+# the library attend, or attend_corr's kernels on the kernel route
+TRAIN_LAUNCHES = {(3, "kernels"): _launches(attend_shift9=1,
+                                            attend_shift9_backward=1),
+                  (1, "library"): _launches(),
+                  (1, "kernels"): _launches(attend_corr=1,
+                                            attend_corr_backward=1)}
+
+
+@contextlib.contextmanager
+def mk1_route(route: str):
+    """match_kernel=1 training on the library route or, with "kernels",
+    on attend_corr's kernels (COCOSNET_PALLAS_MK1_TRAIN=1)."""
+    from cocosnet_tpu_torch.models import correspondence as CR
+    prev = os.environ.pop(CR.MK1_TRAIN_ENV, None)
+    if route == "kernels":
+        os.environ[CR.MK1_TRAIN_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(CR.MK1_TRAIN_ENV, None)
+        if prev is not None:
+            os.environ[CR.MK1_TRAIN_ENV] = prev
 
 
 def _zero_counts(counted) -> None:
@@ -346,17 +505,18 @@ def make_batch(g, b, h, w, nc):
     }
 
 
-def reference_check(P, cfg, g):
+def reference_check(P, cfg, g, match_kernel):
     """The whole slice on the card (kernels, f32) against the same weights
     and batch through the plain versions on the CPU, at a small input
     (128 x 256, ngf 16, 13 classes: a 32 x 64 feature map) that takes
-    every kernel; atol 5e-4 as the CPU parity tests hold the slice against
-    the JAX package."""
+    every kernel of the path; atol 5e-4 as the CPU parity tests hold the
+    slice against the JAX package."""
     opt = cfg.test_defaults(
         dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,
         crop_size=256, load_size=256, aspect_ratio=2.0, batchSize=1, ngf=16,
         use_attention=True, maskmix=True, PONO=True, PONO_C=True,
-        warp_mask_losstype="direct", isTrain=False)
+        warp_mask_losstype="direct", match_kernel=match_kernel,
+        isTrain=False)
     batch = make_batch(g, 1, 128, 256, opt.semantic_nc)
     cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
     condition_weights(cpu.corr, g, "cpu")
@@ -366,19 +526,23 @@ def reference_check(P, cfg, g):
     gpu.gen.load_state_dict(cpu.gen.state_dict())
     want = P.inference(cpu, P.preprocess_input(opt, batch, device="cpu"))
     counted = _counted()
-    before = {k: counted[k].launches for k in INFERENCE_KERNELS}
+    path = [k for k, n in INFERENCE_LAUNCHES[match_kernel].items() if n]
+    before = {k: counted[k].launches for k in path}
     got = P.inference(gpu, P.preprocess_input(opt, batch, device="cuda"))
-    moved = {k: counted[k].launches - before[k] for k in INFERENCE_KERNELS}
-    _check(all(moved.values()), f"small input launched every kernel {moved}")
+    moved = {k: counted[k].launches - before[k] for k in path}
+    _check(all(moved.values()), f"match_kernel {match_kernel} small input "
+           f"launched every kernel of its path {moved}")
     for key in ("fake_image", "warp_out", "warp_mask"):
         err = _maxerr(got[key].cpu(), want[key])
-        _check(err <= 5e-4, f"small-input slice on the card vs plain on the "
-               f"CPU, {key}: max err {err:.3g} <= 5e-4")
+        _check(err <= 5e-4, f"match_kernel {match_kernel} small-input slice "
+               f"on the card vs plain on the CPU, {key}: max err {err:.3g} "
+               f"<= 5e-4")
 
 
 def train_opt(cfg, **kw):
     """The flagship training configuration (bench.py's bench_train):
-    ade20k flags, TTUR, EMA, weight_mask 100, vgg_normal_correct."""
+    ade20k flags, TTUR, EMA, weight_mask 100, vgg_normal_correct; kw may
+    set match_kernel 1."""
     base = dict(dataset_mode="ade20k", contain_dontcare_label=True,
                 use_attention=True, maskmix=True, PONO=True, PONO_C=True,
                 warp_mask_losstype="direct", match_kernel=3,
@@ -416,12 +580,17 @@ def _rel_l2(got: dict, want: dict, base: dict = None) -> float:
 
 
 def _check_losses(got, want, tol, what) -> None:
+    """Every loss term on the card against the CPU's at rel `tol`, in one
+    line: term card/CPU rel."""
     _check(set(got) == set(want), f"{what}: loss terms {sorted(got)}")
-    for key in sorted(want):
-        t, o = float(want[key]), float(got[key])
-        rel = abs(o - t) / (abs(t) + 1e-2)
-        _check(rel <= tol, f"{what} on the card vs plain on the CPU, {key}: "
-               f"{o:.6g} vs {t:.6g}, rel {rel:.3g} <= {tol:g}")
+    rels = {k: abs(float(got[k]) - float(want[k])) / (abs(float(want[k]))
+                                                      + 1e-2)
+            for k in sorted(want)}
+    _check(max(rels.values()) <= tol,
+           f"{what} on the card vs plain on the CPU, every loss at rel <= "
+           f"{tol:g}: " + ", ".join(
+               f"{k} {float(got[k]):.6g}/{float(want[k]):.6g} {r:.2g}"
+               for k, r in rels.items()))
 
 
 def term_gradients(P, L, nets, batch) -> dict:
@@ -456,12 +625,12 @@ def term_gradients(P, L, nets, batch) -> dict:
     return grads
 
 
-def train_reference_check(P, cfg, L, TS, ST, g):
+def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
     """The train step's gradients and two f32 train steps on the card
-    (shift9 kernels forward and backward, library convs) against the same
-    weights and batch through the plain versions on the CPU, at
-    reference_check's size (128 x 256, ngf 16, ndf 16, 13 classes, batch
-    1):
+    (library convs; the correlation on `route`, "kernels" or "library", of
+    its match_kernel) against the same weights and batch through the plain
+    versions on the CPU, at reference_check's size (128 x 256, ngf 16, ndf
+    16, 13 classes, batch 1):
     - each loss term's gradient on each network it trains, at 2e-2
       relative L2: the f32 orders alone move them up to 7e-3 (the
       contextual loss's 1 - cos cancels, and 1/tau = 100 amplifies the
@@ -480,7 +649,9 @@ def train_reference_check(P, cfg, L, TS, ST, g):
       2e-5;
     and the second step's losses at rel 2e-2, as the CPU tests hold it."""
     opt = train_opt(cfg, label_nc=12, crop_size=256, load_size=256,
-                    aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16)
+                    aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16,
+                    match_kernel=match_kernel)
+    tag = f"match_kernel {match_kernel} ({route} route)"
     batch = make_batch(g, 1, 128, 256, opt.semantic_nc)
     cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
     for net in cpu.modules():
@@ -493,14 +664,17 @@ def train_reference_check(P, cfg, L, TS, ST, g):
              for m in cpu.modules()]
     want_g = term_gradients(P, L, cpu, batch)
     got_g = term_gradients(P, L, gpu, batch)
+    rels = {}
     for key in sorted(want_g):
         num = sum(float(((a - b) ** 2).sum())
                   for a, b in zip(got_g[key], want_g[key]))
         den = sum(float((b ** 2).sum()) for b in want_g[key])
-        rel = (num / den) ** 0.5 if den else (0.0 if num == 0 else 1.0)
-        _check(rel <= 2e-2, f"gradient of {key[1]} on {key[0]} (norm "
-               f"{den ** 0.5:.4g}), card vs CPU: relative L2 {rel:.3g} "
-               f"<= 2e-2")
+        rels[key] = (num / den) ** 0.5 if den else (0.0 if num == 0
+                                                     else 1.0)
+    _check(max(rels.values()) <= 2e-2,
+           f"{tag} each loss term's gradient on each network, card vs CPU, "
+           f"relative L2 <= 2e-2: " + ", ".join(
+               f"{term}/{net} {r:.2g}" for (net, term), r in rels.items()))
     del want_g, got_g
     for sd, a, b in zip(start, cpu.modules(), gpu.modules()):
         a.load_state_dict(sd)
@@ -516,19 +690,20 @@ def train_reference_check(P, cfg, L, TS, ST, g):
     got, _ = gstep(gstate, batch, lr)
     torch.cuda.synchronize()
     moved = {k: fn.launches for k, fn in counted.items()}
-    _check(moved == TRAIN_LAUNCHES,
-           f"small train step launched {moved} == {TRAIN_LAUNCHES}")
-    _check_losses(got, want, 2e-3, "small train step")
+    want_moved = TRAIN_LAUNCHES[(match_kernel, route)]
+    _check(moved == want_moved,
+           f"{tag} small train step launched {moved} == {want_moved}")
+    _check_losses(got, want, 2e-3, f"{tag} small train step")
 
     cg, gg = _grads(cpu, cstate), _grads(gpu, gstate)
     cp, gp = _params(cpu), _params(gpu)
     for net in TRAINED:
         rel = _rel_l2(gg[net], cg[net])
-        _check(rel <= 2e-2, f"small train step, {net} gradient "
+        _check(rel <= 2e-2, f"{tag} small train step, {net} gradient "
                f"({len(cg[net])} tensors) on the card vs the CPU: relative "
                f"L2 {rel:.3g} <= 2e-2")
         upd = _rel_l2(gp[net], cp[net], p0[net])
-        _check(upd <= 0.1, f"small train step, {net} update p1 - p0: "
+        _check(upd <= 0.1, f"{tag} small train step, {net} update p1 - p0: "
                f"relative L2 {upd:.3g} <= 0.1")
     for net in ("gen", "corr"):
         pre = net + "."
@@ -537,7 +712,7 @@ def train_reference_check(P, cfg, L, TS, ST, g):
         ge = {k: gstate.ema[k].cpu().double() for k in ce}
         base = {k: p0[net][k[len(pre):]] for k in ce}
         ema = _rel_l2(ge, ce, base)
-        _check(ema <= 0.1, f"small train step, {net} EMA shadow move: "
+        _check(ema <= 0.1, f"{tag} small train step, {net} EMA shadow move: "
                f"relative L2 {ema:.3g} <= 0.1")
 
     worst, count = 0.0, 0
@@ -548,12 +723,12 @@ def train_reference_check(P, cfg, L, TS, ST, g):
                 worst = max(worst, _maxerr(sb[k].cpu(), t))
                 count += 1
     _check(count > 0 and worst <= 2e-5,
-           f"spectral u/v after the step ({count} vectors): max err "
+           f"{tag} spectral u/v after the step ({count} vectors): max err "
            f"{worst:.3g} <= 2e-5")
 
     want, _ = cstep(cstate, batch, lr)
     got, _ = gstep(gstate, batch, lr)
-    _check_losses(got, want, 2e-2, "second small train step")
+    _check_losses(got, want, 2e-2, f"{tag} second small train step")
 
 
 KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
@@ -561,6 +736,8 @@ KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
     ("conv3x3_onehot.cu", ("onehot_kernel",)),
     ("shift9_fwd.cu", ("shift9_fwd_kernel",)),
     ("shift9_bwd.cu", ("shift9_bwd_kernel",)),
+    ("corr_fwd.cu", ("corr_fwd_kernel",)),
+    ("corr_bwd.cu", ("corr_bwd_kernel",)),
     ("library conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                               "implicit")),
     ("library matmul", ("gemm", "cutlass", "cublas")),
@@ -606,22 +783,92 @@ def profile_call(fn) -> None:
     for key, (n, us) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
         print(f"  {key:24s} {n:5d} launches {us / 1e3:9.3f} ms "
               f"{us / total:6.1%}")
-    # the backward kernel's two passes (its template argument: the owner
+    # the backward kernels' two passes (their template argument: the owner
     # side is the queries, or the keys)
-    for flag, what in (("<true>", "query pass"), ("<false>", "key pass")):
-        us = sum(e.time_range.elapsed_us() for e in kernels
-                 if "shift9_bwd_kernel" + flag in e.name)
-        if us:
-            print(f"    shift9_bwd.cu {what}: {us / 1e3:.3f} ms")
+    for src in ("shift9_bwd", "corr_bwd"):
+        for flag, what in (("<true>", "query pass"), ("<false>", "key pass")):
+            us = sum(e.time_range.elapsed_us() for e in kernels
+                     if f"{src}_kernel{flag}" in e.name)
+            if us:
+                print(f"    {src}.cu {what}: {us / 1e3:.3f} ms")
 
 
-def flagship_training(P, cfg, TS, ST, g) -> dict:
-    """Phase 5: flagship training at batch 8 under the bf16 policy through
-    make_train_step: the launches of one step, finite losses, two warm-up
-    steps, then timed steps, peak memory and a profile of one step.
+def flagship_inference(P, cfg, L, g, match_kernel, timed_runs) -> dict:
+    """Phases 4 and 4b: flagship-width inference (batch 6 and batch 1, bf16
+    policy, seeded random weights) at `match_kernel`: the launches of one
+    forward, the outputs' shapes and ranges, images/s, batch-1 latency,
+    peak memory (the phase's own) and profiles. Returns the launches."""
+    L.set_compute_dtype(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    opt = cfg.test_defaults(
+        dataset_mode="ade20k", label_nc=150, contain_dontcare_label=True,
+        crop_size=256, load_size=256, batchSize=6, ngf=64,
+        use_attention=True, maskmix=True, PONO=True, PONO_C=True,
+        warp_mask_losstype="direct", match_kernel=match_kernel,
+        isTrain=False)
+    nets = P.Pix2PixNets(opt, seed=0)
+    condition_weights(nets.corr, g, "cuda")
+    condition_weights(nets.gen, g, "cuda")
+    batch = make_batch(g, 6, 256, 256, opt.semantic_nc)
+    counted = _counted()
+    _zero_counts(counted)
+    out = P.inference(nets, P.preprocess_input(opt, batch))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    tag = f"match_kernel {match_kernel} flagship"
+    print(f"launches in one {tag} forward: {launches}", flush=True)
+    expected = INFERENCE_LAUNCHES[match_kernel]
+    _check(launches == expected,
+           f"every kernel of the path launched as the routing predicts "
+           f"{expected}")
+    fake = out["fake_image"]
+    _check(tuple(fake.shape) == (6, 256, 256, 3)
+           and bool(torch.isfinite(fake).all())
+           and float(fake.abs().max()) <= 1.0,
+           f"fake_image (6, 256, 256, 3) finite in [-1, 1] (std "
+           f"{float(fake.std()):.3f})")
+    _check(tuple(out["warp_out"].shape) == (6, 256, 256, 3)
+           and tuple(out["warp_mask"].shape) == (6, 64, 64, 151)
+           and all(bool(torch.isfinite(out[k]).all())
+                   for k in ("warp_out", "warp_mask")),
+           "warp_out (6, 256, 256, 3) and warp_mask (6, 64, 64, 151) finite")
+    wsum = out["warp_mask"].float().sum(-1)
+    _check(float((wsum - 1).abs().max()) < 1e-2,
+           "warp_mask rows are distributions over the 151 classes")
+
+    data = P.preprocess_input(opt, batch)
+    fwd_ms = time_ms(lambda: P.inference(nets, data), runs=timed_runs)
+    one = {k: v[:1] for k, v in batch.items()}
+    data1 = P.preprocess_input(opt, one)
+    lat = []
+    for _ in range(timed_runs + 2):
+        t = time.perf_counter()
+        P.inference(nets, P.preprocess_input(opt, one))
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t))
+    lat = sorted(lat[2:])
+    fwd1_ms = time_ms(lambda: P.inference(nets, data1), runs=timed_runs)
+    print(f"{tag} batch 6: {fwd_ms:.2f} ms per forward, "
+          f"{6e3 / fwd_ms:.2f} images/s; batch 1: p50 "
+          f"{lat[len(lat) // 2]:.2f} ms end to end with preprocessing "
+          f"({fwd1_ms:.2f} ms forward); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    profile_call(lambda: P.inference(nets, data))
+    profile_call(lambda: P.inference(nets, data1))
+    del nets, out, data, data1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps) -> dict:
+    """Phases 5 and 5b: flagship-width training at batch 8 under the bf16
+    policy through make_train_step, at `match_kernel` with its correlation
+    on `route`: the launches of one step, finite losses, two warm-up steps,
+    then `steps` timed steps, peak memory and a profile of one step.
     Returns the launches of the counted step."""
     opt = train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
-                    batchSize=8, ngf=64, ndf=64)
+                    batchSize=8, ngf=64, ndf=64, match_kernel=match_kernel)
+    tag = f"match_kernel {match_kernel} flagship training ({route} route)"
     nets = P.Pix2PixNets(opt, seed=0)
     for net in nets.modules():
         condition_weights(net, g, "cuda")
@@ -640,10 +887,11 @@ def flagship_training(P, cfg, TS, ST, g) -> dict:
     losses, vis = step(state, batch, lr)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counted.items()}
-    print(f"launches in one flagship train step: {launches}", flush=True)
-    _check(launches == TRAIN_LAUNCHES,
+    print(f"launches in one {tag} step: {launches}", flush=True)
+    expected = TRAIN_LAUNCHES[(match_kernel, route)]
+    _check(launches == expected,
            f"every kernel of the train path launched as the routing "
-           f"predicts {TRAIN_LAUNCHES}")
+           f"predicts {expected}")
     _check(len(losses) == 9 and finite(losses),
            "9 loss terms, all finite: " + ", ".join(
                f"{k} {float(v):.4g}" for k, v in sorted(losses.items())))
@@ -652,7 +900,6 @@ def flagship_training(P, cfg, TS, ST, g) -> dict:
            "fake_image (8, 256, 256, 3) finite")
     losses, _ = step(state, batch, lr)          # second warm-up
     _check(finite(losses), "second step's losses finite")
-    steps = 10
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(steps):
@@ -660,11 +907,12 @@ def flagship_training(P, cfg, TS, ST, g) -> dict:
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t) / steps
     _check(finite(losses), f"losses finite after {steps + 2} steps")
-    print(f"flagship training batch 8: {dt:.4f} s/step, {8 / dt:.2f} "
-          f"images/s ({steps} steps after 2 warm-ups, host clock); peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
+    print(f"{tag} batch 8: {dt:.4f} s/step, {8 / dt:.2f} images/s ({steps} "
+          f"steps after 2 warm-ups, host clock); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_call(lambda: step(state, batch, lr))
+    del nets, state, step, batch, losses, vis
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -677,6 +925,7 @@ def main() -> None:
     from cocosnet_tpu_torch.nn import layers as L
     from cocosnet_tpu_torch.ops import _build
     from cocosnet_tpu_torch.ops import conv3x3 as C
+    from cocosnet_tpu_torch.ops import corr as Kc
     from cocosnet_tpu_torch.ops import shift9 as S
     from cocosnet_tpu_torch.train import state as TS
     from cocosnet_tpu_torch.train import steps as ST
@@ -736,82 +985,39 @@ def main() -> None:
         r = check_onehot(C, g, dtype=dtype)
         if dtype == torch.bfloat16:
             rows["conv3x3_onehot"] = r
+    # match_kernel 1: the forward at the inference shape (batch 6), the
+    # backward at the training shape (batch 8), then both at N = M = 2500
+    # (a 200 px crop: partial query and key tiles)
+    rows["attend_corr"] = check_corr(Kc, g, b=6, n=4096, timed=True)
+    rows["attend_corr_backward"] = check_corr_bwd(Kc, g, b=8, n=4096,
+                                                  timed=True)
+    check_corr(Kc, g, b=2, n=2500, timed=False)
+    check_corr_bwd(Kc, g, b=2, n=2500, timed=False)
     torch.cuda.empty_cache()
 
-    # phase 3: the small-input slice against the plain versions
-    reference_check(P, cfg, g)
-    # phase 3b: a small f32 train step against the plain versions
-    train_reference_check(P, cfg, L, TS, ST, g)
-    torch.cuda.empty_cache()
+    # phase 3: the small-input slices against the plain versions
+    for mk in (3, 1):
+        reference_check(P, cfg, g, mk)
+    # phase 3b: small f32 train steps against the plain versions
+    for mk, route in ((3, "kernels"), (1, "library"), (1, "kernels")):
+        with mk1_route(route):
+            train_reference_check(P, cfg, L, TS, ST, g, mk, route)
+        torch.cuda.empty_cache()
 
-    # phase 4: flagship inference, bf16 policy, seeded random weights; the
-    # peak memory it reports is its own, not the kernel checks'
-    L.set_compute_dtype(torch.bfloat16)
-    torch.cuda.reset_peak_memory_stats()
-    opt = cfg.test_defaults(
-        dataset_mode="ade20k", label_nc=150, contain_dontcare_label=True,
-        crop_size=256, load_size=256, batchSize=6, ngf=64,
-        use_attention=True, maskmix=True, PONO=True, PONO_C=True,
-        warp_mask_losstype="direct", match_kernel=3, isTrain=False)
-    nets = P.Pix2PixNets(opt, seed=0)
-    condition_weights(nets.corr, g, "cuda")
-    condition_weights(nets.gen, g, "cuda")
-    batch = make_batch(g, 6, 256, 256, opt.semantic_nc)
-    counted = _counted()
-    _zero_counts(counted)
-    out = P.inference(nets, P.preprocess_input(opt, batch))
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counted.items()}
-    print(f"launches in one flagship forward: {launches}", flush=True)
-    expected = {"attend_shift9": 1, "attend_shift9_backward": 0,
-                "conv3x3_fused": 80, "conv3x3_fused_stats": 20,
-                "conv3x3_onehot": 1}
-    _check(launches == expected,
-           f"every kernel of the path launched as the routing predicts "
-           f"{expected}")
-    fake = out["fake_image"]
-    _check(tuple(fake.shape) == (6, 256, 256, 3)
-           and bool(torch.isfinite(fake).all())
-           and float(fake.abs().max()) <= 1.0,
-           f"fake_image (6, 256, 256, 3) finite in [-1, 1] (std "
-           f"{float(fake.std()):.3f})")
-    _check(tuple(out["warp_out"].shape) == (6, 256, 256, 3)
-           and tuple(out["warp_mask"].shape) == (6, 64, 64, 151)
-           and all(bool(torch.isfinite(out[k]).all())
-                   for k in ("warp_out", "warp_mask")),
-           "warp_out (6, 256, 256, 3) and warp_mask (6, 64, 64, 151) finite")
-    wsum = out["warp_mask"].float().sum(-1)
-    _check(float((wsum - 1).abs().max()) < 1e-2,
-           "warp_mask rows are distributions over the 151 classes")
-
-    data = P.preprocess_input(opt, batch)
-    fwd_ms = time_ms(lambda: P.inference(nets, data), runs=10)
-    one = {k: v[:1] for k, v in batch.items()}
-    data1 = P.preprocess_input(opt, one)
-    lat = []
-    for _ in range(12):
-        t = time.perf_counter()
-        P.inference(nets, P.preprocess_input(opt, one))
-        torch.cuda.synchronize()
-        lat.append(1e3 * (time.perf_counter() - t))
-    lat = sorted(lat[2:])
-    fwd1_ms = time_ms(lambda: P.inference(nets, data1), runs=10)
-    print(f"flagship batch 6: {fwd_ms:.2f} ms per forward, "
-          f"{6e3 / fwd_ms:.2f} images/s; batch 1: p50 "
-          f"{lat[len(lat) // 2]:.2f} ms end to end with preprocessing "
-          f"({fwd1_ms:.2f} ms forward); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    profile_call(lambda: P.inference(nets, data))
-    profile_call(lambda: P.inference(nets, data1))
-    del nets, out, data, data1
-    torch.cuda.empty_cache()
-
-    # phase 5: flagship training, bf16 policy, seeded random weights
-    train_launches = flagship_training(P, cfg, TS, ST, g)
+    # phases 4 and 4b: flagship-width inference, bf16 policy
+    runs = {"inference": flagship_inference(P, cfg, L, g, 3, 10),
+            "match_kernel 1 inference": flagship_inference(P, cfg, L, g, 1,
+                                                           10)}
+    # phases 5 and 5b: flagship-width training, bf16 policy
+    runs["train step"] = flagship_training(P, cfg, TS, ST, g, 3, "kernels",
+                                           10)
+    for route in ("library", "kernels"):
+        with mk1_route(route):
+            runs[f"match_kernel 1 train step, {route} route"] = \
+                flagship_training(P, cfg, TS, ST, g, 1, route, 10)
 
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)
-    runs = {"inference": launches, "train step": train_launches}
     src = {"attend_shift9": ("cocosnet_tpu_torch/csrc/shift9_fwd.cu",
                              "cocosnet_tpu/ops/pallas_shift9.py:173",
                              "inference"),
@@ -826,7 +1032,14 @@ def main() -> None:
                                    "inference"),
            "conv3x3_onehot": ("cocosnet_tpu_torch/csrc/conv3x3_onehot.cu",
                               "cocosnet_tpu/ops/pallas_conv.py:808",
-                              "inference")}
+                              "inference"),
+           "attend_corr": ("cocosnet_tpu_torch/csrc/corr_fwd.cu",
+                           "cocosnet_tpu/ops/pallas_corr.py:113",
+                           "match_kernel 1 inference"),
+           "attend_corr_backward": (
+               "cocosnet_tpu_torch/csrc/corr_bwd.cu",
+               "cocosnet_tpu/ops/pallas_corr.py:202",
+               "match_kernel 1 train step, kernels route")}
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
                     path=path, launches=runs[path][k], **rows[k])
                for k, (source, replaces, path) in src.items()]

@@ -1,16 +1,29 @@
-"""Cross-domain correspondence network, flagship branch.
+"""Cross-domain correspondence network, match_kernel 3 (the flagship) and 1.
 
-Counterpart of cocosnet_tpu/models/correspondence.py `CorrespondenceNet`
-at match_kernel=3: two domain adaptors, the channel L2 norm, the (maskmix)
-residual stack, the theta/phi 1x1 convs and one fused 3x3-unfold
-correlation + softmax + warp (ops/shift9.attend_shift9) whose values are
-the exemplar colors and, with the direct mask loss type, the exemplar's
-one-hot map. In train mode, given the real image, it also returns the
-domain-alignment loss `loss_novgg_featpair` (correspondence.py:149-153).
+Counterpart of cocosnet_tpu/models/correspondence.py `CorrespondenceNet`:
+two domain adaptors, the channel L2 norm, the (maskmix) residual stack, the
+theta/phi 1x1 convs and one fused correlation + softmax + warp whose values
+are the exemplar colors and, with the direct mask loss type, the
+exemplar's one-hot map. In train mode, given the real image, it also
+returns the domain-alignment loss `loss_novgg_featpair`
+(correspondence.py:149-153).
+
+The warp, by match_kernel:
+- 3: the 3x3-unfold correlation, ops/shift9.attend_shift9 (its kernels
+  forward and backward, in inference and training);
+- 1: dense 256-dim descriptors, centered (over channels with PONO_C, over
+  positions without) and L2-normalized in f32, then ops/corr.attend_corr
+  (its kernels) in inference; in training the library route
+  ops/correlation.attend, unless the environment sets
+  COCOSNET_PALLAS_MK1_TRAIN=1 (read at each call), which puts training on
+  attend_corr's kernels forward and backward, as the JAX package routes
+  its Pallas kernel (correspondence.py:313-319).
+`opt.use_pallas` is not read: a CUDA tensor always takes the kernels.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Dict, Optional
 
@@ -21,17 +34,28 @@ from cocosnet_tpu_torch.config import Options
 from cocosnet_tpu_torch.models.generator import AdaptiveFeatureGenerator
 from cocosnet_tpu_torch.nn.blocks import ResidualBlock
 from cocosnet_tpu_torch.nn.layers import Conv2d, OneHotLabels
+from cocosnet_tpu_torch.ops.corr import attend_corr
+from cocosnet_tpu_torch.ops.correlation import attend
 from cocosnet_tpu_torch.ops.image import (avg_pool, resize_nearest,
                                           upsample_nearest)
 from cocosnet_tpu_torch.ops.shift9 import attend_shift9
 
 _EPS = sys.float_info.epsilon
+# "1" puts match_kernel=1 training on attend_corr's kernels
+MK1_TRAIN_ENV = "COCOSNET_PALLAS_MK1_TRAIN"
+
+
+def safe_l2_norm(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(sum(x^2) + tiny) over the last dim in f32: a finite gradient at
+    an exactly-zero vector."""
+    x = x.float()
+    return torch.sqrt((x * x).sum(dim=-1, keepdim=True) + 1e-24)
 
 
 def feature_normalize(x: torch.Tensor) -> torch.Tensor:
     """L2 normalize over the channel dim (NHWC), f32."""
     x = x.float()
-    return x / (torch.sqrt((x * x).sum(dim=-1, keepdim=True) + 1e-24) + _EPS)
+    return x / (safe_l2_norm(x) + _EPS)
 
 
 class CorrespondenceNet(tnn.Module):
@@ -46,6 +70,16 @@ class CorrespondenceNet(tnn.Module):
                                       for _ in range(4)])
         self.theta = Conv2d(channels, 256, 1)
         self.phi = Conv2d(channels, 256, 1)
+
+    def _descriptor(self, y: torch.Tensor) -> torch.Tensor:
+        """match_kernel=1 descriptors (B, N, 256) of a theta/phi output:
+        centered over channels (PONO_C) or over positions, L2-normalized,
+        f32 (correspondence.py:272-289)."""
+        b, h, w, c = y.shape
+        desc = y.float().reshape(b, h * w, c)
+        desc = desc - desc.mean(dim=-1 if self.opt.PONO_C else 1,
+                                keepdim=True)
+        return desc / (safe_l2_norm(desc) + _EPS)
 
     def forward(self, ref_img: torch.Tensor, seg_map: torch.Tensor,
                 ref_seg_map: torch.Tensor, temperature: float = 0.01,
@@ -100,8 +134,17 @@ class CorrespondenceNet(tnn.Module):
         values = [ref_v]
         if need_direct_mask:
             values.append(ref_seg_small.reshape(b, n, -1))
-        row_out = attend_shift9(y_theta, y_phi, torch.cat(values, -1),
-                                temperature, opt.PONO_C)
+        v = torch.cat(values, -1)
+        if opt.match_kernel == 1:
+            theta = self._descriptor(y_theta)
+            phi = self._descriptor(y_phi)
+            if self.training and os.environ.get(MK1_TRAIN_ENV) != "1":
+                row_out = attend(theta, phi, v, temperature)
+            else:
+                row_out = attend_corr(theta, phi, v, temperature)
+        else:
+            row_out = attend_shift9(y_theta, y_phi, v, temperature,
+                                    opt.PONO_C)
         y = row_out[..., :3].reshape(b, fh, fw, 3)
         out["warp_out"] = upsample_nearest(y, opt.down)
         if need_direct_mask:

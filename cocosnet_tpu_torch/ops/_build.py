@@ -22,7 +22,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
-SOURCES = ("shift9_fwd", "shift9_bwd", "conv3x3", "conv3x3_onehot")
+SOURCES = ("shift9_fwd", "shift9_bwd", "conv3x3", "conv3x3_onehot",
+           "corr_fwd", "corr_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -46,6 +47,14 @@ SIGNATURES = {
     "conv3x3_onehot": {
         "cocosnet_conv3x3_onehot": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
         "cocosnet_onehot_tile_pixels": [],
+    },
+    "corr_fwd": {
+        "cocosnet_corr_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],
+        "cocosnet_corr_max_d": [],
+    },
+    "corr_bwd": {
+        "cocosnet_corr_bwd": [_P] * 9 + [_I] * 5 + [_F, _P],
+        "cocosnet_corr_bwd_smem": [_I, _I],
     },
 }
 

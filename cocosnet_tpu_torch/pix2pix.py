@@ -33,7 +33,7 @@ VGG_KEYS = ["r12", "r22", "r32", "r42", "r52"]
 FM_WEIGHTS = [1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0]
 
 # flags whose branches are not ported yet, with the value the port runs
-_PORTED = dict(match_kernel=3, mask_noise=False, noise_for_mask=False,
+_PORTED = dict(mask_noise=False, noise_for_mask=False,
                use_coordconv=False, warp_patch=False, warp_bilinear=False,
                show_corr=False, warp_cycle_w=0.0, adaptor_res_deeper=False,
                adaptor_nonlocal=False, adaptor_se=False, mesh_model=1,
@@ -55,6 +55,8 @@ def check_ported(opt: Options) -> None:
     """Raises on a configuration whose branches the port does not have."""
     bad = {k: getattr(opt, k) for k, v in _PORTED.items()
            if getattr(opt, k) != v}
+    if opt.match_kernel not in (1, 3):
+        bad["match_kernel"] = opt.match_kernel
     if opt.dataset_mode not in ("ade20k", "flickr"):
         bad["dataset_mode"] = opt.dataset_mode
     if opt.warp_mask_losstype not in ("none", "direct"):

@@ -9,9 +9,11 @@ library conv (the JAX package traces it with its Pallas convs gated off),
 and with gen, corr and disc in train mode, so each spectral norm advances
 its power iteration on each forward, as torch's pre-hook does: G's and
 Corr's once per step, D's twice (in the G step's discriminate and in the D
-step). The shift9 correlation runs its hand-written kernels forward and
-backward. The step updates the networks' parameters, the optimizer state,
-the spectral u/v and the EMA shadows in place.
+step). The correlation runs as models/correspondence routes it: on the
+shift9 kernels forward and backward at match_kernel 3; at match_kernel 1
+as matmul + softmax under autograd, or on attend_corr's kernels under
+COCOSNET_PALLAS_MK1_TRAIN=1. The step updates the networks' parameters,
+the optimizer state, the spectral u/v and the EMA shadows in place.
 """
 
 from __future__ import annotations

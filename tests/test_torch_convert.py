@@ -64,6 +64,31 @@ def test_round_trip_gives_back_every_leaf(nets_and_variables, net):
         np.testing.assert_array_equal(np.asarray(got[path]), leaf)
 
 
+def test_mk1_corr_round_trip_gives_back_every_leaf():
+    """At match_kernel=1 the JAX net's theta/phi are created in _descriptor,
+    with the same names and shapes as the match_kernel=3 branch's: the
+    port's mapping carries them unchanged."""
+    kw = dict(OPT, match_kernel=1)
+    jnets = JP.Pix2PixNets(JCFG.test_defaults(**kw))
+    b, h = 2, 64
+    nc = jnets.opt.semantic_nc
+    sem = jnp.zeros((b, h, h, nc))
+    img = jnp.zeros((b, h, h, 3))
+    variables = _random_variables(
+        lambda: jnets.corr.init(jax.random.PRNGKey(0), img, None, sem, sem,
+                                train=False), 2)
+    assert {"theta", "phi"} <= set(variables["params"])
+    module = TP.Pix2PixNets(TCFG.test_defaults(**kw), device="cpu").corr
+    load_flax_variables(module, variables)
+    sd = {k: v.numpy() for k, v in module.state_dict().items()}
+    back = dict(jax.tree_util.tree_leaves_with_path(
+        convert_torch_module(sd, default_name_map)))
+    want = jax.tree_util.tree_leaves_with_path(variables)
+    assert len(back) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(np.asarray(back[path]), leaf)
+
+
 @pytest.mark.parametrize("name,ndim,want", [
     ("adaptive_model_seg.layer1.0.weight_orig", 4,
      ("params", ("adaptive_model_seg", "layer1", "conv", "kernel"), "hwio")),

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from cocosnet_tpu_torch.ops import conv3x3 as C
+from cocosnet_tpu_torch.ops import corr as K
 from cocosnet_tpu_torch.ops import image as I
 from cocosnet_tpu_torch.ops import shift9 as S
 
@@ -146,11 +147,65 @@ def test_shift9_autograd_runs_the_backward_kernel(gen, w):
                                    atol=1e-4 * float(r.abs().max()))
 
 
+def _unit(t):
+    return torch.nn.functional.normalize(t, dim=-1)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 256, 154), (1, 100, 77, 32, 3),
+                                   (2, 130, 200, 40, 7), (1, 5, 300, 17, 33),
+                                   (3, 257, 65, 256, 256)])
+def test_corr_kernels_match_plain(gen, shape):
+    """corr_fwd.cu and corr_bwd.cu against their plain versions on the same
+    inputs (B, N, M, C, D), with partial query and key tiles and N != M:
+    o within 2e-5 (outputs are convex combinations of v ~ N(0, 1), 1/tau =
+    100 in the logits), lse within 1e-4, and each gradient within 1e-4 of
+    its largest magnitude (f32 sums over N or M in another order)."""
+    b, n, m, c, d = shape
+    q, k = _unit(_r(gen, b, n, c)), _unit(_r(gen, b, m, c))
+    v, go = _r(gen, b, m, d), _r(gen, b, n, d)
+    o, lse = K.corr_fwd_kernel(q, k, v, 0.01)
+    po, plse = K.corr_fwd_plain(q, k, v, 0.01)
+    torch.testing.assert_close(o, po, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+    args = (q, k, v, 0.01, lse, go, (go * o).sum(-1))
+    got = K.corr_bwd_kernel(*args)
+    want = K.corr_bwd_plain(*args)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=name)
+
+
+def test_corr_autograd_runs_the_kernels(gen):
+    """attend_corr on CUDA tensors that require grad: one forward and one
+    backward launch, gradients of q, k and v as the plain versions give
+    them on the CPU."""
+    q = _unit(_r(gen, 2, 70, 24)).requires_grad_()
+    k = _unit(_r(gen, 2, 90, 24)).requires_grad_()
+    v = _r(gen, 2, 90, 5).requires_grad_()
+    n = (K.attend_corr.launches, K.attend_corr_backward.launches)
+    got = torch.autograd.grad(torch.sin(K.attend_corr(q, k, v, 0.01)).sum(),
+                              (q, k, v))
+    assert (K.attend_corr.launches,
+            K.attend_corr_backward.launches) == (n[0] + 1, n[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        torch.sin(K.attend_corr(*cpu, 0.01)).sum(), cpu)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a.cpu(), r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()))
+
+
 def test_kernels_raise_on_what_they_do_not_take(gen):
     """A CUDA tensor launches the kernel or raises: no plain fallback."""
     f = _r(gen, 1, 4, 128, 8)     # W = 128 runs; D = 300 > 256 is refused
     with pytest.raises(ValueError, match="D <= 256"):
         S.attend_shift9(f, f, _r(gen, 1, 512, 300), 0.01)
+    q = _r(gen, 1, 40, 8)
+    with pytest.raises(ValueError, match="D <= 256"):
+        K.attend_corr(q, q, _r(gen, 1, 40, 300), 0.01)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.corr_bwd_kernel(_r(gen, 1, 40, 2304), _r(gen, 1, 40, 2304),
+                          q, 0.01, q[..., 0], q, q[..., 0])
     x = _r(gen, 1, 8, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         C.conv3x3_fused(x, _r(gen, 3, 3, 64, 64, dtype=torch.float16))

@@ -36,6 +36,7 @@ from cocosnet_tpu_torch.models.generator import (
 from cocosnet_tpu_torch.nn import blocks as TB
 from cocosnet_tpu_torch.nn.layers import OneHotLabels as TOneHot
 from cocosnet_tpu_torch.ops import conv3x3 as C
+from cocosnet_tpu_torch.ops import corr as K
 from cocosnet_tpu_torch.ops import shift9 as S
 
 FLAGSHIP_SMALL = dict(
@@ -102,7 +103,7 @@ def _batch(semantic_nc, b, h, w, seed=0):
 
 
 COUNTED = (C.conv3x3_fused, C.conv3x3_fused_stats, C.conv3x3_onehot,
-           S.attend_shift9)
+           S.attend_shift9, K.attend_corr)
 
 
 def _run_both(opt_kw, b, h, w):
@@ -157,7 +158,8 @@ def test_slice_plain_counters(flagship_small):
     wide case below moves them."""
     *_, calls = flagship_small
     assert calls == {"conv3x3_fused": 0, "conv3x3_fused_stats": 0,
-                     "conv3x3_onehot": 1, "attend_shift9": 1}
+                     "conv3x3_onehot": 1, "attend_shift9": 1,
+                     "attend_corr": 0}
 
 
 def test_wide_slice_moves_every_counter():
@@ -170,9 +172,40 @@ def test_wide_slice_moves_every_counter():
               ngf=16, batchSize=1)
     jout, tout, calls = _run_both(kw, 1, 128, 256)
     assert calls == {"conv3x3_fused": 52, "conv3x3_fused_stats": 18,
-                     "conv3x3_onehot": 1, "attend_shift9": 1}
+                     "conv3x3_onehot": 1, "attend_shift9": 1,
+                     "attend_corr": 0}
     for key in ("fake_image", "warp_out", "warp_mask"):
         np.testing.assert_allclose(tout[key], jout[key], atol=5e-4)
+
+
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["pono_c", "positions"])
+def mk1_small(request):
+    """The flagship flags at match_kernel=1, with the descriptors centered
+    over channels (PONO_C) or over positions."""
+    return _run_both(dict(FLAGSHIP_SMALL, match_kernel=1,
+                          PONO_C=request.param), 2, 64, 64)
+
+
+@pytest.mark.parametrize("key", ["fake_image", "warp_out", "warp_mask",
+                                 "adaptive_feature_seg",
+                                 "adaptive_feature_img"])
+def test_mk1_slice_matches_jax(mk1_small, key):
+    """Dense descriptors through attend_corr (its plain version) against
+    the JAX net's _descriptor and attend, at atol 5e-4 (measured: 1.4e-5 on
+    warp_mask, 4.5e-6 on fake_image)."""
+    jout, tout, _ = mk1_small
+    assert tout[key].shape == jout[key].shape
+    assert np.isfinite(tout[key]).all()
+    np.testing.assert_allclose(tout[key], jout[key], atol=5e-4)
+
+
+def test_mk1_slice_plain_counters(mk1_small):
+    """An mk1 forward runs attend_corr once and shift9 never."""
+    *_, calls = mk1_small
+    assert calls == {"conv3x3_fused": 0, "conv3x3_fused_stats": 0,
+                     "conv3x3_onehot": 1, "attend_shift9": 0,
+                     "attend_corr": 1}
 
 
 # ------------------------------------------------------------------ blocks

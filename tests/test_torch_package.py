@@ -41,10 +41,12 @@ def test_port_imports_no_jax_and_nothing_of_cocosnet_tpu(path):
     assert not bad, f"{path} imports {bad}"
     with open(path) as f:
         text = f.read()
-    # no dynamic import of them either, and no environment switch
+    # no dynamic import of them either, and no environment switch but the
+    # one the JAX package has for match_kernel=1 training
     assert not re.search(r"import_module\(\s*['\"](jax|cocosnet_tpu\b)",
                          text)
-    assert "os.environ" not in text
+    for m in re.finditer(r"\bos\.(environ|getenv)\b(.{0,24})", text):
+        assert "MK1_TRAIN_ENV" in m.group(2), (path, m.group(0))
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -61,9 +63,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 def test_unported_options_raise():
     opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12, ngf=8,
-                             PONO=True, isTrain=False, match_kernel=1)
-    with pytest.raises(NotImplementedError, match="match_kernel"):
+                             PONO=True, isTrain=False, warp_patch=True)
+    with pytest.raises(NotImplementedError, match="warp_patch"):
         TP.Pix2PixNets(opt, device="cpu")
+
+
+@pytest.mark.parametrize("match_kernel,ported", [(1, True), (3, True),
+                                                 (5, False)])
+def test_match_kernel_values(match_kernel, ported):
+    opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12, ngf=8,
+                             PONO=True, isTrain=False,
+                             match_kernel=match_kernel)
+    if ported:
+        TP.check_ported(opt)
+    else:
+        with pytest.raises(NotImplementedError, match="match_kernel"):
+            TP.check_ported(opt)
 
 
 def test_kernel_sources_build_from_the_package():
