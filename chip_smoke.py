@@ -12,6 +12,12 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   JAX package's parity runs): inference at batch 6, and training at batch 8
   on both of its routes, the library route (the default) and the kernel
   route (COCOSNET_PALLAS_MK1_TRAIN=1);
+- the flagship training step on its two conv routes: the dW kernel
+  (COCOSNET_PALLAS_DW=1) and the fused conv with its backward
+  (COCOSNET_FUSED_CONV_TRAIN=1);
+- the tool twins at their defaults: cocosnet_tpu_torch/tools/ab_dw.py and
+  cocosnet_tpu_torch/tools/bench_corr.py (the large-descriptor correlation
+  kernels' path);
 checking on each path that every kernel of that path was launched as often
 as the routing predicts.
 
@@ -408,20 +414,213 @@ def check_corr_bwd(Kc, g, *, b, n, timed):
                         f"backward, {backend}")
 
 
+# each dW and db within this fraction of its largest magnitude: f32 sums
+# over K = B H W = 32768..131072 products in another order (the products of
+# bf16 operands are exact in f32; WMMA's accumulation over one 32768-row
+# split at 512->512 measured 4.0e-5)
+DW_REL_TOL = 1e-4
+
+
+def check_dw(C, g, *, b, h, w, ci, co, reflect, dtype, timed):
+    """conv3x3_dw's kernel against its plain version on one shape; with
+    `timed`, a determinism check (two launches, the same bits) and its
+    record beside cuDNN's weight gradient."""
+    dev = "cuda"
+    x = torch.randn(b, h, w, ci, generator=g).to(dev, dtype)
+    gy = torch.randn(b, h, w, co, generator=g).to(dev, dtype)
+    got = C._conv3x3_dw_kernel(x, gy, reflect)
+    want = C.conv3x3_dw_plain(x, gy, reflect=reflect)
+    torch.cuda.synchronize()
+    errs = [_maxerr(a, r) for a, r in zip(got, want)]
+    scales = [float(r.abs().max()) for r in want]
+    label = (f"dw {ci}->{co} @{h}x{w} B{b} {'reflect' if reflect else 'zero'}"
+             f" {dtype}")
+    _check(all(e <= DW_REL_TOL * s for e, s in zip(errs, scales)),
+           f"{label}: max err / max |out| dw {errs[0]:.3g}/{scales[0]:.3g}, "
+           f"db {errs[1]:.3g}/{scales[1]:.3g} <= {DW_REL_TOL:g} (f32 sums "
+           f"reordered)")
+    if not timed:
+        return None
+    again = C._conv3x3_dw_kernel(x, gy, reflect)
+    _check(all(torch.equal(a, r) for a, r in zip(got, again)),
+           f"{label}: two launches give the same bits")
+    ms = time_ms(lambda: C._conv3x3_dw_kernel(x, gy, reflect))
+    plain_ms = time_ms(lambda: C.conv3x3_dw_plain(x, gy, reflect=reflect))
+    xc = x.permute(0, 3, 1, 2)
+    xp = torch.nn.functional.pad(xc, (1, 1, 1, 1), mode="reflect") \
+        if reflect else xc
+    gc = gy.permute(0, 3, 1, 2)
+    library_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+        xp, (co, ci, 3, 3), gc, padding=0 if reflect else 1))
+    flops = 2.0 * b * h * w * 9 * ci * co
+    nb = _nbytes(x, gy, *got)
+    bms, by = bound_ms(nb, flops, BF16_FLOP_S if dtype == torch.bfloat16
+                       else F32_FLOP_S)
+    print(f"     {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"cuDNN weight gradient {library_ms:.3f} ms, bound {bms:.3f} ms "
+          f"({by}, {flops / 1e9:.2f} GFLOP)", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms,
+                library="torch.nn.grad.conv2d_weight (cuDNN wgrad)")
+
+
+def check_fused_bwd(C, g, *, b, h, w, ci, co, dtype):
+    """conv3x3_fused's backward on the card against its plain version (the
+    same backward with the plain dx conv), and the record of its kernel
+    launch: the zero-ring conv of g with the rotated kernel."""
+    dev = "cuda"
+    x = torch.randn(b, h, w, ci, generator=g).to(dev, dtype)
+    k = (torch.randn(3, 3, ci, co, generator=g) * (ci * 9) ** -0.5).to(
+        dev, dtype)
+    gy = torch.randn(b, h, w, co, generator=g).to(dev, dtype)
+    need = (True, False, False)
+    got = C.conv3x3_fused_backward(x, k, None, gy, reflect=True,
+                                   need=need)[0]
+    want = C.conv3x3_fused_backward_plain(x, k, None, gy, reflect=True,
+                                          need=need)[0]
+    torch.cuda.synchronize()
+    scale = float(want.float().abs().max())
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 3e-5) * scale
+    err = _maxerr(got, want)
+    label = f"fused backward dx {ci}->{co} @{h}x{w} B{b} reflect {dtype}"
+    _check(err <= tol, f"{label}: max err {err:.3g} <= {tol:.3g} (the ring "
+           f"scatter rounds once more in {dtype})")
+    krot = k.flip(0, 1).transpose(2, 3).contiguous()
+    ms = time_ms(lambda: C._conv3x3_kernel(gy, krot, None, False, None,
+                                           False))
+    plain_ms = time_ms(lambda: C.conv3x3_plain(gy, krot, None))
+    wc = k.permute(3, 2, 0, 1)
+    gc = gy.permute(0, 3, 1, 2)
+    library_ms = time_ms(lambda: torch.nn.grad.conv2d_input(
+        (b, ci, h, w), wc, gc, padding=1))
+    flops = 2.0 * b * h * w * 9 * ci * co
+    nb = _nbytes(gy, k) + b * h * w * ci * x.element_size()
+    bms, by = bound_ms(nb, flops, BF16_FLOP_S if dtype == torch.bfloat16
+                       else F32_FLOP_S)
+    print(f"     {label}: dx kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"cuDNN input gradient {library_ms:.3f} ms, bound {bms:.3f} ms "
+          f"({by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms,
+                library="torch.nn.grad.conv2d_input (cuDNN dgrad)")
+
+
+BIGC_C, BIGC_D = 2304, 3
+
+
+def check_bigc(Kc, TC, g, *, b, n, m, timed):
+    """The large-descriptor forward (corr_fwd.cu at C = 2304) against its
+    plain version; with `timed`, its record beside SDPA and the library
+    route's attend_chunked."""
+    q, k, v = corr_inputs(g, b, n, m, c=BIGC_C, d=BIGC_D)
+    o, lse = Kc.corr_fwd_kernel(q, k, v, CORR_TAU)
+    po, plse = Kc.corr_fwd_plain(q, k, v, CORR_TAU)
+    torch.cuda.synchronize()
+    err, lerr = _maxerr(o, po), _maxerr(lse, plse)
+    label = f"bigc forward B{b} N={n} M={m} C{BIGC_C} D{BIGC_D}"
+    _check(err <= 1e-4 and lerr <= 1e-3,
+           f"{label}: o err {err:.3g} <= 1e-4, lse err {lerr:.3g} <= 1e-3 "
+           f"(f32 sums over C in another order, 1/tau in the logits)")
+    del po, plse
+    if not timed:
+        return None
+    ms = time_ms(lambda: Kc.corr_fwd_kernel(q, k, v, CORR_TAU), runs=5)
+    plain_ms = time_ms(lambda: Kc.corr_fwd_plain(q, k, v, CORR_TAU), runs=5)
+    lib = lambda: sdpa(q, k, v, CORR_TAU)  # noqa: E731
+    library_ms = time_ms(lib, runs=5)
+    backend = sdpa_backend(lib)
+    chunked_ms = time_ms(lambda: TC.attend_chunked(q, k, v, CORR_TAU),
+                         runs=5)
+    torch.cuda.empty_cache()
+    flops = 2.0 * b * n * m * (BIGC_C + BIGC_D)
+    nb = _nbytes(q, k, v, o, lse)
+    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    print(f"     {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
+          f"f32 ({backend}) {library_ms:.3f} ms, attend_chunked "
+          f"{chunked_ms:.3f} ms, bound {bms:.3f} ms ({by}, "
+          f"{flops / 1e9:.1f} GFLOP)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=library_ms,
+                library=f"F.scaled_dot_product_attention f32, {backend}")
+
+
+def check_bigc_bwd(Kc, KB, TC, g, *, b, n, m, timed):
+    """corr_bigc_bwd.cu against its plain version (corr_bwd_plain), from the
+    kernel forward's lse and a random output gradient; with `timed`, a
+    determinism check and its record beside SDPA's and attend_chunked's
+    forward + backward."""
+    q, k, v = corr_inputs(g, b, n, m, c=BIGC_C, d=BIGC_D)
+    go = torch.randn(b, n, BIGC_D, generator=g).to("cuda")
+    o, lse = Kc.corr_fwd_kernel(q, k, v, CORR_TAU)
+    args = (q, k, v, CORR_TAU, lse, go, (go * o).sum(-1))
+    got = KB.corr_bigc_bwd_kernel(*args)
+    want = Kc.corr_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = [_maxerr(a, r) for a, r in zip(got, want)]
+    scales = [float(r.abs().max()) for r in want]
+    del want
+    torch.cuda.empty_cache()
+    label = f"bigc backward B{b} N={n} M={m} C{BIGC_C} D{BIGC_D}"
+    _check(all(e <= BWD_REL_TOL * s for e, s in zip(errs, scales)),
+           f"{label}: max err / max |out| "
+           + ", ".join(f"{nm} {e:.3g}/{s:.3g}"
+                       for nm, e, s in zip(("dq", "dk", "dv"), errs, scales))
+           + f" <= {BWD_REL_TOL:g} (f32 sums reordered, 1/tau in the logits)")
+    if not timed:
+        return None
+    again = KB.corr_bigc_bwd_kernel(*args)
+    _check(all(torch.equal(a, r) for a, r in zip(got, again)),
+           f"{label}: two launches give the same bits")
+    del again
+    ms = time_ms(lambda: KB.corr_bigc_bwd_kernel(*args), runs=3)
+    plain_ms = time_ms(lambda: Kc.corr_bwd_plain(*args), runs=3)
+    torch.cuda.empty_cache()
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def lib():
+        torch.autograd.grad(sdpa(qr, kr, vr, CORR_TAU), (qr, kr, vr), go)
+
+    library_ms = time_ms(lib, runs=3)
+    backend = sdpa_backend(lib)
+    chunked_ms = time_ms(lambda: torch.autograd.grad(
+        TC.attend_chunked(qr, kr, vr, CORR_TAU), (qr, kr, vr), go), runs=3)
+    torch.cuda.empty_cache()
+    c, d = BIGC_C, BIGC_D
+    flops = 2.0 * b * n * m * (3 * c + 2 * d)
+    design_flops = 2.0 * b * n * m * (4 * c + 3 * d)
+    nb = _nbytes(*args[:3], *args[4:], *got)
+    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    print(f"     {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
+          f"f32 forward + backward ({backend}) {library_ms:.3f} ms, "
+          f"attend_chunked forward + backward {chunked_ms:.3f} ms, bound "
+          f"{bms:.3f} ms ({by}, {flops / 1e12:.3f} TFLOP; the two-pass "
+          f"design does {design_flops / 1e12:.3f}, "
+          f"{1e3 * design_flops / F32_FLOP_S:.3f} ms)", flush=True)
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms,
+                library=f"F.scaled_dot_product_attention f32 forward + "
+                        f"backward, {backend}")
+
+
 # ------------------------------------------------------------------ phase 3
 
 def _counted():
     """The kernel entries of the paths, by name."""
     from cocosnet_tpu_torch.ops import conv3x3 as C
     from cocosnet_tpu_torch.ops import corr as Kc
+    from cocosnet_tpu_torch.ops import corr_bigc as KB
     from cocosnet_tpu_torch.ops import shift9 as S
     return {"attend_shift9": S.attend_shift9,
             "attend_shift9_backward": S.attend_shift9_backward,
             "attend_corr": Kc.attend_corr,
             "attend_corr_backward": Kc.attend_corr_backward,
+            "attend_corr_bigc": KB.attend_corr_bigc,
+            "attend_corr_bigc_backward": KB.attend_corr_bigc_backward,
             "conv3x3_fused": C.conv3x3_fused,
+            "conv3x3_fused_backward": C.conv3x3_fused_backward,
             "conv3x3_fused_stats": C.conv3x3_fused_stats,
-            "conv3x3_onehot": C.conv3x3_onehot}
+            "conv3x3_onehot": C.conv3x3_onehot,
+            "conv3x3_dw": C.conv3x3_dw}
 
 
 def _launches(**kw) -> dict:
@@ -433,30 +632,63 @@ CONVS = dict(conv3x3_fused=80, conv3x3_fused_stats=20, conv3x3_onehot=1)
 # per flagship-width inference forward, by match_kernel
 INFERENCE_LAUNCHES = {3: _launches(attend_shift9=1, **CONVS),
                       1: _launches(attend_corr=1, **CONVS)}
-# per train step: every conv is a library conv (nn.layers.training); the
-# shift9 core runs its kernels forward and backward; match_kernel 1 runs
-# the library attend, or attend_corr's kernels on the kernel route
-TRAIN_LAUNCHES = {(3, "kernels"): _launches(attend_shift9=1,
-                                            attend_shift9_backward=1),
+SHIFT9 = dict(attend_shift9=1, attend_shift9_backward=1)
+# per flagship train step, by (match_kernel, route). The shift9 core runs
+# its kernels forward and backward; match_kernel 1 runs the library attend,
+# or attend_corr's kernels on the kernel route. By default every conv is a
+# library conv (nn.layers.training). On the conv routes, the counts of
+# tools/ab_dw.predicted_launches over tools/ab_dw.record_convs of one step:
+# COCOSNET_PALLAS_DW=1 takes dW of the 70 trainable convs of the winners
+# table (40 of 128->512 @64^2, 12 of 512->512, 8 of 128->256, 4 of
+# 256->256, 3 + 3 of 154->128 @64^2 and @128^2); COCOSNET_FUSED_CONV_TRAIN
+# =1 runs the 128 convs of the fused gate on conv3x3.cu (the generator's and
+# the correspondence net's, and the VGG's on the fake, the ref and the real
+# image; the 16 407->407 convs stay on the library by the pad-ratio rule),
+# and a dx launch for the 106 of them whose input takes a gradient (not the
+# first convs on the data, nor the VGG's under no_grad)
+TRAIN_LAUNCHES = {(3, "kernels"): _launches(**SHIFT9),
                   (1, "library"): _launches(),
                   (1, "kernels"): _launches(attend_corr=1,
-                                            attend_corr_backward=1)}
+                                            attend_corr_backward=1),
+                  (3, "dw"): _launches(conv3x3_dw=70, **SHIFT9),
+                  (3, "fused"): _launches(conv3x3_fused=128,
+                                          conv3x3_fused_backward=106,
+                                          **SHIFT9)}
 
 
 @contextlib.contextmanager
-def mk1_route(route: str):
-    """match_kernel=1 training on the library route or, with "kernels",
-    on attend_corr's kernels (COCOSNET_PALLAS_MK1_TRAIN=1)."""
+def train_route(route: str):
+    """The switches of a train route, all others at their defaults (unset):
+    "library" (every default), "kernels" (match_kernel 1 on attend_corr's
+    kernels, COCOSNET_PALLAS_MK1_TRAIN=1), "dw" or "dw all"
+    (COCOSNET_PALLAS_DW=1 or =all), "fused" (COCOSNET_FUSED_CONV_TRAIN=1)."""
     from cocosnet_tpu_torch.models import correspondence as CR
-    prev = os.environ.pop(CR.MK1_TRAIN_ENV, None)
+    from cocosnet_tpu_torch.nn import layers as L
+    from cocosnet_tpu_torch.ops import conv3x3 as C
+
+    def clear():
+        os.environ.pop(CR.MK1_TRAIN_ENV, None)
+        os.environ.pop(C.DW_ENV, None)
+        os.environ.pop(L.FUSED_TRAIN_ENV, None)
+
+    clear()
     if route == "kernels":
         os.environ[CR.MK1_TRAIN_ENV] = "1"
+    elif route in ("dw", "dw all"):
+        os.environ[C.DW_ENV] = "all" if route == "dw all" else "1"
+    elif route == "fused":
+        os.environ[L.FUSED_TRAIN_ENV] = "1"
     try:
         yield
     finally:
-        os.environ.pop(CR.MK1_TRAIN_ENV, None)
-        if prev is not None:
-            os.environ[CR.MK1_TRAIN_ENV] = prev
+        clear()
+
+
+def _corr_launches(match_kernel, route) -> dict:
+    """The correlation kernels' part of a step's launches on `route`."""
+    key = (match_kernel, route if match_kernel == 1 else "kernels")
+    return {k: v for k, v in TRAIN_LAUNCHES[key].items()
+            if k.startswith("attend")}
 
 
 def _zero_counts(counted) -> None:
@@ -626,11 +858,13 @@ def term_gradients(P, L, nets, batch) -> dict:
 
 
 def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
-    """The train step's gradients and two f32 train steps on the card
-    (library convs; the correlation on `route`, "kernels" or "library", of
-    its match_kernel) against the same weights and batch through the plain
-    versions on the CPU, at reference_check's size (128 x 256, ngf 16, ndf
-    16, 13 classes, batch 1):
+    """The train step's gradients and two f32 train steps on the card (on
+    `route`: at match_kernel 1 "kernels" or "library" for the correlation,
+    library convs; at match_kernel 3 "kernels", library convs, or a conv
+    route, "dw all" or "fused") against the same weights and batch through
+    the plain versions on the CPU, at reference_check's size (128 x 256,
+    ngf 16, ndf 16, 13 classes, batch 1: a size where the conv gates take
+    some convs, so the conv routes' counters move):
     - each loss term's gradient on each network it trains, at 2e-2
       relative L2: the f32 orders alone move them up to 7e-3 (the
       contextual loss's 1 - cos cancels, and 1/tau = 100 amplifies the
@@ -648,6 +882,7 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
     - every spectral u/v (G's and Corr's advanced once, D's twice) at atol
       2e-5;
     and the second step's losses at rel 2e-2, as the CPU tests hold it."""
+    from cocosnet_tpu_torch.tools import ab_dw as AB
     opt = train_opt(cfg, label_nc=12, crop_size=256, load_size=256,
                     aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16,
                     match_kernel=match_kernel)
@@ -687,12 +922,21 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
     want, _ = cstep(cstate, batch, lr)
     counted = _counted()
     _zero_counts(counted)
-    got, _ = gstep(gstate, batch, lr)
+    res = []
+    records = AB.record_convs(lambda: res.append(gstep(gstate, batch, lr)))
+    got = res[0][0]
     torch.cuda.synchronize()
     moved = {k: fn.launches for k, fn in counted.items()}
-    want_moved = TRAIN_LAUNCHES[(match_kernel, route)]
+    want_moved = _launches(**_corr_launches(match_kernel, route),
+                           **AB.predicted_launches(records))
     _check(moved == want_moved,
-           f"{tag} small train step launched {moved} == {want_moved}")
+           f"{tag} small train step launched {moved} == {want_moved}, the "
+           f"routing's prediction")
+    new = {"dw all": ("conv3x3_dw",),
+           "fused": ("conv3x3_fused", "conv3x3_fused_backward")}.get(route,
+                                                                    ())
+    _check(all(moved[k] for k in new), f"{tag}: the route's kernels "
+           f"{new} ran")
     _check_losses(got, want, 2e-3, f"{tag} small train step")
 
     cg, gg = _grads(cpu, cstate), _grads(gpu, gstate)
@@ -738,6 +982,8 @@ KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
     ("shift9_bwd.cu", ("shift9_bwd_kernel",)),
     ("corr_fwd.cu", ("corr_fwd_kernel",)),
     ("corr_bwd.cu", ("corr_bwd_kernel",)),
+    ("corr_bigc_bwd.cu", ("corr_bigc_bwd_kernel",)),
+    ("conv3x3_dw.cu", ("conv3x3_dw_kernel", "reduce_splits")),
     ("library conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                               "implicit")),
     ("library matmul", ("gemm", "cutlass", "cublas")),
@@ -785,7 +1031,7 @@ def profile_call(fn) -> None:
               f"{us / total:6.1%}")
     # the backward kernels' two passes (their template argument: the owner
     # side is the queries, or the keys)
-    for src in ("shift9_bwd", "corr_bwd"):
+    for src in ("shift9_bwd", "corr_bwd", "corr_bigc_bwd"):
         for flag, what in (("<true>", "query pass"), ("<false>", "key pass")):
             us = sum(e.time_range.elapsed_us() for e in kernels
                      if f"{src}_kernel{flag}" in e.name)
@@ -861,11 +1107,14 @@ def flagship_inference(P, cfg, L, g, match_kernel, timed_runs) -> dict:
 
 
 def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps) -> dict:
-    """Phases 5 and 5b: flagship-width training at batch 8 under the bf16
-    policy through make_train_step, at `match_kernel` with its correlation
-    on `route`: the launches of one step, finite losses, two warm-up steps,
-    then `steps` timed steps, peak memory and a profile of one step.
+    """Phases 5, 5b, 5c and 5d: flagship-width training at batch 8 under the
+    bf16 policy through make_train_step, at `match_kernel` on `route` (the
+    correlation's at match_kernel 1; "kernels", "dw" or "fused" at 3): the
+    launches of one step, against TRAIN_LAUNCHES and against the routing's
+    prediction from the step's recorded convs, finite losses, two warm-up
+    steps, then `steps` timed steps, peak memory and a profile of one step.
     Returns the launches of the counted step."""
+    from cocosnet_tpu_torch.tools import ab_dw as AB
     opt = train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
                     batchSize=8, ngf=64, ndf=64, match_kernel=match_kernel)
     tag = f"match_kernel {match_kernel} flagship training ({route} route)"
@@ -884,14 +1133,19 @@ def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps) -> dict:
 
     counted = _counted()
     _zero_counts(counted)
-    losses, vis = step(state, batch, lr)
+    res = []
+    records = AB.record_convs(lambda: res.append(step(state, batch, lr)))
+    losses, vis = res[0]
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counted.items()}
     print(f"launches in one {tag} step: {launches}", flush=True)
     expected = TRAIN_LAUNCHES[(match_kernel, route)]
-    _check(launches == expected,
-           f"every kernel of the train path launched as the routing "
-           f"predicts {expected}")
+    predicted = _launches(**_corr_launches(match_kernel, route),
+                          **AB.predicted_launches(records))
+    _check(launches == expected == predicted,
+           f"every kernel of the train path launched as TRAIN_LAUNCHES "
+           f"states {expected} and the routing predicts from the step's "
+           f"{len(records)} convs")
     _check(len(losses) == 9 and finite(losses),
            "9 loss terms, all finite: " + ", ".join(
                f"{k} {float(v):.4g}" for k, v in sorted(losses.items())))
@@ -926,6 +1180,8 @@ def main() -> None:
     from cocosnet_tpu_torch.ops import _build
     from cocosnet_tpu_torch.ops import conv3x3 as C
     from cocosnet_tpu_torch.ops import corr as Kc
+    from cocosnet_tpu_torch.ops import corr_bigc as KB
+    from cocosnet_tpu_torch.ops import correlation as TC
     from cocosnet_tpu_torch.ops import shift9 as S
     from cocosnet_tpu_torch.train import state as TS
     from cocosnet_tpu_torch.train import steps as ST
@@ -994,13 +1250,38 @@ def main() -> None:
     check_corr(Kc, g, b=2, n=2500, timed=False)
     check_corr_bwd(Kc, g, b=2, n=2500, timed=False)
     torch.cuda.empty_cache()
+    # the training dW at every shape of the COCOSNET_PALLAS_DW=1 gate (batch
+    # 8, both rings, f32 and bf16), timed at its most frequent one (128->512
+    # @64^2, 40 calls per step); the fused conv's backward dx at 512->512
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, w, ci, co, _ in sorted(C.DW_WINNERS):
+            for reflect in (True, False):
+                timed = (dtype == torch.bfloat16 and reflect
+                         and (ci, co) == (128, 512))
+                r = check_dw(C, g, b=8, h=h, w=w, ci=ci, co=co,
+                             reflect=reflect, dtype=dtype, timed=timed)
+                if timed:
+                    rows["conv3x3_dw"] = r
+    torch.cuda.empty_cache()
+    rows["conv3x3_fused_backward"] = check_fused_bwd(
+        C, g, b=8, h=64, w=64, ci=512, co=512, dtype=torch.bfloat16)
+    # the large-descriptor correlation at the A/B tool's shape (batch 6,
+    # 64 x 64, C = 9 x 256, D = 3), then a ragged N != M, untimed
+    rows["attend_corr_bigc"] = check_bigc(Kc, TC, g, b=6, n=4096, m=4096,
+                                          timed=True)
+    rows["attend_corr_bigc_backward"] = check_bigc_bwd(
+        Kc, KB, TC, g, b=6, n=4096, m=4096, timed=True)
+    check_bigc(Kc, TC, g, b=2, n=2500, m=2304, timed=False)
+    check_bigc_bwd(Kc, KB, TC, g, b=2, n=2500, m=2304, timed=False)
+    torch.cuda.empty_cache()
 
     # phase 3: the small-input slices against the plain versions
     for mk in (3, 1):
         reference_check(P, cfg, g, mk)
     # phase 3b: small f32 train steps against the plain versions
-    for mk, route in ((3, "kernels"), (1, "library"), (1, "kernels")):
-        with mk1_route(route):
+    for mk, route in ((3, "kernels"), (1, "library"), (1, "kernels"),
+                      (3, "dw all"), (3, "fused")):
+        with train_route(route):
             train_reference_check(P, cfg, L, TS, ST, g, mk, route)
         torch.cuda.empty_cache()
 
@@ -1012,9 +1293,33 @@ def main() -> None:
     runs["train step"] = flagship_training(P, cfg, TS, ST, g, 3, "kernels",
                                            10)
     for route in ("library", "kernels"):
-        with mk1_route(route):
+        with train_route(route):
             runs[f"match_kernel 1 train step, {route} route"] = \
                 flagship_training(P, cfg, TS, ST, g, 1, route, 10)
+    # phases 5c and 5d: the flagship train step on its two conv routes
+    for route, path in (("dw", "train step, COCOSNET_PALLAS_DW=1"),
+                        ("fused", "train step, COCOSNET_FUSED_CONV_TRAIN=1")):
+        with train_route(route):
+            runs[path] = flagship_training(P, cfg, TS, ST, g, 3, route, 5)
+    L.set_compute_dtype(None)
+
+    # phase 6: the tool twins at their defaults; bench_corr is the path of
+    # the large-descriptor kernels
+    from cocosnet_tpu_torch.tools import ab_dw, bench_corr
+    print("tools/ab_dw.py twin:", flush=True)
+    ab_dw.main([])
+    counted = _counted()
+    _zero_counts(counted)
+    print("tools/bench_corr.py twin:", flush=True)
+    bench = bench_corr.main([])
+    _check(all(r["err"] <= 5e-4 for r in bench),
+           "bench_corr: every path within 5e-4 of the f32 oracle: "
+           + ", ".join(f"{r['path']} {r['err']:.2e}" for r in bench))
+    runs["bench_corr"] = {k: fn.launches for k, fn in counted.items()}
+    _check(runs["bench_corr"]["attend_corr_bigc"] > 0
+           and runs["bench_corr"]["attend_corr_bigc_backward"] > 0,
+           f"bench_corr launched the large-descriptor kernels "
+           f"{runs['bench_corr']}")
 
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)
@@ -1039,7 +1344,20 @@ def main() -> None:
            "attend_corr_backward": (
                "cocosnet_tpu_torch/csrc/corr_bwd.cu",
                "cocosnet_tpu/ops/pallas_corr.py:202",
-               "match_kernel 1 train step, kernels route")}
+               "match_kernel 1 train step, kernels route"),
+           "conv3x3_dw": ("cocosnet_tpu_torch/csrc/conv3x3_dw.cu",
+                          "cocosnet_tpu/ops/pallas_conv.py:432",
+                          "train step, COCOSNET_PALLAS_DW=1"),
+           "conv3x3_fused_backward": (
+               "cocosnet_tpu_torch/csrc/conv3x3.cu",
+               "cocosnet_tpu/ops/pallas_conv.py:267",
+               "train step, COCOSNET_FUSED_CONV_TRAIN=1"),
+           "attend_corr_bigc": ("cocosnet_tpu_torch/csrc/corr_fwd.cu",
+                                "cocosnet_tpu/ops/pallas_corr_bigc.py:98",
+                                "bench_corr"),
+           "attend_corr_bigc_backward": (
+               "cocosnet_tpu_torch/csrc/corr_bigc_bwd.cu",
+               "cocosnet_tpu/ops/pallas_corr_bigc.py:194", "bench_corr")}
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
                     path=path, launches=runs[path][k], **rows[k])
                for k, (source, replaces, path) in src.items()]

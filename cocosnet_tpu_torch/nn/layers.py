@@ -9,23 +9,33 @@ torch.nn.utils.spectral_norm: a module in train mode advances one power
 iteration per forward and stores u and v; in eval mode sigma = u . (W v)
 comes from the stored u and v, unchanged.
 
-Inside `training()` every conv runs as F.conv2d, as the JAX package traces
-a train step with its Pallas convs gated off (pallas_conv.training_trace):
-the hand-written conv kernels have no backward.
+Inside `training()` the convs route as the JAX package's training trace
+routes them (pallas_conv.training_trace): by default every conv is a
+library conv; COCOSNET_FUSED_CONV_TRAIN=1 sends the fused kernel's shapes
+to conv3x3_fused and its backward, COCOSNET_PALLAS_DW=1 or =all sends the
+3x3 convs of its gate to conv3x3_xla_pdw (library forward and dx, dW on
+csrc/conv3x3_dw.cu). The statistics and one-hot kernels stay inference
+only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional
 
 import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
-from cocosnet_tpu_torch.ops.conv3x3 import (conv3x3_fused,
+from cocosnet_tpu_torch.ops.conv3x3 import (conv3x3_dw_supported,
+                                            conv3x3_fused,
                                             conv3x3_fused_stats,
-                                            conv3x3_onehot)
+                                            conv3x3_onehot, conv3x3_xla_pdw)
+
+# "1" (or "true") lets training convs take conv3x3_fused where its gate
+# agrees; anything else keeps them off it
+FUSED_TRAIN_ENV = "COCOSNET_FUSED_CONV_TRAIN"
 
 # Compute-dtype policy for convolutions: None = f32; torch.bfloat16 runs
 # operands and outputs in bf16 with f32 accumulation inside the conv.
@@ -46,9 +56,10 @@ _IN_TRAINING = False
 
 @contextlib.contextmanager
 def training():
-    """The dynamic extent of a train step: `conv2d` sends every conv to
-    F.conv2d (a OneHotLabels input densified, instance-norm moments from
-    torch on the conv output)."""
+    """The dynamic extent of a train step: `conv2d` routes as the JAX
+    training trace does (a OneHotLabels input densified, instance-norm
+    moments from torch on the conv output, the conv itself on the library
+    unless FUSED_TRAIN_ENV or the DW_ENV of ops/conv3x3 say otherwise)."""
     global _IN_TRAINING
     prev = _IN_TRAINING
     _IN_TRAINING = True
@@ -86,11 +97,17 @@ class OneHotLabels:
         return (self.labels[..., None] == classes).to(self.dtype)
 
 
-def fused_conv_supported(x_shape, kernel_shape, *, stride: int,
-                         padding: int) -> bool:
-    """The shapes the JAX package sends to its fused 3x3 kernel, less its
-    TPU-only conditions: 3x3, stride 1, padding 1 (a reflect ring counts as
-    padding 1), and the size conditions of pallas_conv._base_supported."""
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _base_supported(x_shape, kernel_shape, *, stride: int,
+                    padding: int) -> bool:
+    """pallas_conv._base_supported less its TPU-only conditions (the TPU
+    check and the VMEM tile search of both orientations, which have no H100
+    meaning): 3x3, stride 1, padding 1 (a reflect ring counts as padding
+    1), and its size conditions. Its COCOSNET_FUSED_CONV switch is not read:
+    its default, on, holds."""
     if len(x_shape) != 4 or tuple(kernel_shape[:2]) != (3, 3):
         return False
     if stride != 1 or padding != 1:
@@ -99,6 +116,34 @@ def fused_conv_supported(x_shape, kernel_shape, *, stride: int,
     cout = kernel_shape[3]
     return (w % 16 == 0 and w >= 32 and h >= 8 and h * w >= 2048
             and c >= 64 and cout >= 64)
+
+
+def conv3x3_supported(x_shape, kernel_shape, *, stride: int,
+                      padding: int) -> bool:
+    """The gate of conv3x3_fused (pallas_conv.conv3x3_supported): off
+    inside training() unless FUSED_TRAIN_ENV is "1" or "true" (read at each
+    call), the base conditions, and not where both channel counts are at
+    least 256 and rounding them up to 128 lanes would grow the GEMM more
+    than 1.5x (pallas_conv.py:642-649: the 407-channel residual stack)."""
+    if _IN_TRAINING and os.environ.get(FUSED_TRAIN_ENV, "0") not in (
+            "1", "true"):
+        return False
+    if not _base_supported(x_shape, kernel_shape, stride=stride,
+                           padding=padding):
+        return False
+    c, cout = x_shape[3], kernel_shape[3]
+    pad_ratio = (_round_up(c, 128) / c) * (_round_up(cout, 128) / cout)
+    return not (pad_ratio > 1.5 and min(c, cout) >= 256)
+
+
+def conv3x3_stats_supported(x_shape, kernel_shape, *, stride: int,
+                            padding: int) -> bool:
+    """The gate of conv3x3_fused_stats (pallas_conv.conv3x3_stats_
+    supported): inference only (no backward), the base conditions, the
+    heavy pad-ratio shapes included. Its COCOSNET_FUSED_CONV_STATS switch
+    is not read: its default, on, holds."""
+    return not _IN_TRAINING and _base_supported(
+        x_shape, kernel_shape, stride=stride, padding=padding)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -118,11 +163,15 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
     With want_stats returns (y, mean, var): the instance-norm moments of y,
     f32 (B, 1, 1, Cout), biased variance.
 
-    Routing, as the JAX package routes to its Pallas kernels: inside
-    `training()` everything goes to F.conv2d; otherwise a OneHotLabels
-    input of a 3x3 stride-1 zero-padded conv goes to conv3x3_onehot, a 3x3
-    conv of `fused_conv_supported` shape to conv3x3_fused_stats (with
-    want_stats) or conv3x3_fused, and everything else to F.conv2d."""
+    Routing, in the JAX package's order (cocosnet_tpu/nn/layers.py:
+    129-203): a OneHotLabels input of a 3x3 stride-1 zero-padded conv goes
+    to conv3x3_onehot outside `training()`, else it is densified; a stats
+    request to conv3x3_fused_stats where `conv3x3_stats_supported`, else to
+    the conv below and torch moments; then conv3x3_fused where
+    `conv3x3_supported`; inside `training()`, a 3x3 stride-1 conv (reflect
+    or padding 1) of the dW gate to conv3x3_xla_pdw; everything else to
+    F.conv2d."""
+    weight = kernel
     if _COMPUTE_DTYPE is not None:
         x = x.to(_COMPUTE_DTYPE)
         kernel = kernel.to(_COMPUTE_DTYPE)
@@ -133,16 +182,27 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
                 and stride == 1 and padding == 1 and not reflect):
             return conv3x3_onehot(x.labels, kernel, bias, dtype=x.dtype,
                                   want_stats=want_stats)
-        return conv2d(x.dense(), kernel, bias, stride=stride,
+        return conv2d(x.dense(), weight, bias, stride=stride,
                       padding=padding, reflect=reflect,
                       want_stats=want_stats)
-    fused = not _IN_TRAINING and fused_conv_supported(
-        x.shape, kernel.shape, stride=stride,
-        padding=1 if reflect else padding)
-    if fused and want_stats:
+    gate = dict(stride=stride, padding=1 if reflect else padding)
+    if want_stats and conv3x3_stats_supported(x.shape, kernel.shape, **gate):
         return conv3x3_fused_stats(x, kernel, bias, reflect=reflect)
-    if fused:
+    if want_stats:
+        y = conv2d(x, weight, bias, stride=stride, padding=padding,
+                   reflect=reflect)
+        y32 = y.float()
+        mean = y32.mean(dim=(1, 2), keepdim=True)
+        var = y32.var(dim=(1, 2), unbiased=False, keepdim=True)
+        return y, mean, var
+    if conv3x3_supported(x.shape, kernel.shape, **gate):
         return conv3x3_fused(x, kernel, bias, reflect=reflect)
+    if (_IN_TRAINING and tuple(kernel.shape[:2]) == (3, 3) and stride == 1
+            and (reflect or padding == 1)
+            and conv3x3_dw_supported(x.shape, kernel.shape,
+                                     reflect=reflect)):
+        # the weight as the caller holds it: its dW arrives in f32
+        return conv3x3_xla_pdw(x, weight, bias, reflect)
     xc = _nchw(x)
     if reflect:
         p = (kernel.shape[0] - 1) // 2
@@ -150,13 +210,7 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
     y = F.conv2d(xc, kernel.permute(3, 2, 0, 1),
                  None if bias is None else bias.to(x.dtype),
                  stride=stride, padding=padding)
-    y = _nhwc(y)
-    if not want_stats:
-        return y
-    y32 = y.float()
-    mean = y32.mean(dim=(1, 2), keepdim=True)
-    var = y32.var(dim=(1, 2), unbiased=False, keepdim=True)
-    return y, mean, var
+    return _nhwc(y)
 
 
 # xavier-normal gain of every conv (the reference's --init_variance 0.02)

@@ -8,6 +8,7 @@ inference and training paths use:
 - the multiscale discriminator's downsample: avg_pool k3 s2 p1,
   count_include_pad=False
 - the one-hot label scatter        (pix2pix_model.py:176-187)
+- F.unfold patch descriptors       (the correlation A/B tool)
 """
 
 from __future__ import annotations
@@ -82,6 +83,14 @@ def avg_pool_3x3_s2_p1(x: torch.Tensor) -> torch.Tensor:
     count = (_window_sum_3_s2(ones_h, 0, ho)[:, None, None]
              * _window_sum_3_s2(ones_w, 0, wo)[None, :, None])
     return (s / count).to(x.dtype)
+
+
+def unfold_descriptors(x: torch.Tensor, k: int) -> torch.Tensor:
+    """F.unfold(x, kernel_size=k, padding=k//2, stride=1) on NHWC: (N, H*W,
+    C*k*k), features in torch's (c, kh, kw) order, the patch descriptors of
+    match_kernel > 1."""
+    cols = F.unfold(x.permute(0, 3, 1, 2), kernel_size=k, padding=k // 2)
+    return cols.transpose(1, 2)
 
 
 def one_hot_scatter(label: torch.Tensor, num_classes: int) -> torch.Tensor:

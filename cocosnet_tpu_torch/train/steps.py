@@ -4,9 +4,11 @@ fake, detached.
 
 Counterpart of cocosnet_tpu/train/steps.py `make_train_step` (the
 reference's per-iteration schedule, train.py:54-58, pix2pix_trainer.py:
-52-74). The step runs inside nn.layers.training(), where every conv is a
-library conv (the JAX package traces it with its Pallas convs gated off),
-and with gen, corr and disc in train mode, so each spectral norm advances
+52-74). The step runs inside nn.layers.training(), where the convs route
+as the JAX package's training trace routes them: library convs by default,
+conv3x3_fused forward and backward under COCOSNET_FUSED_CONV_TRAIN=1, the
+dW kernel under COCOSNET_PALLAS_DW=1 or =all (nn/layers.conv2d); and with
+gen, corr and disc in train mode, so each spectral norm advances
 its power iteration on each forward, as torch's pre-hook does: G's and
 Corr's once per step, D's twice (in the G step's discriminate and in the D
 step). The correlation runs as models/correspondence routes it: on the

@@ -12,6 +12,7 @@ import torch
 
 from cocosnet_tpu_torch.ops import conv3x3 as C
 from cocosnet_tpu_torch.ops import corr as K
+from cocosnet_tpu_torch.ops import corr_bigc as KB
 from cocosnet_tpu_torch.ops import image as I
 from cocosnet_tpu_torch.ops import shift9 as S
 
@@ -211,19 +212,130 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
         C.conv3x3_fused(x, _r(gen, 3, 3, 64, 64, dtype=torch.float16))
 
 
-@pytest.mark.parametrize("entry", ["fused", "stats", "onehot"])
+@pytest.mark.parametrize("entry", ["stats", "onehot"])
 def test_conv_kernels_refuse_inputs_that_require_grad(gen, entry):
-    """The conv kernels have no backward: a CUDA input that requires grad
-    raises instead of coming back without a grad_fn."""
+    """The statistics and one-hot conv kernels have no backward (nor do
+    the JAX package's): a CUDA input that requires grad raises instead of
+    coming back without a grad_fn. conv3x3_fused has one (below)."""
     k = _r(gen, 3, 3, 64, 64, scale=1 / 24).requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         if entry == "onehot":
             C.conv3x3_onehot(torch.zeros(1, 8, 16, dtype=torch.int32,
                                          device="cuda"), k)
         else:
-            fn = C.conv3x3_fused_stats if entry == "stats" else \
-                C.conv3x3_fused
-            fn(_r(gen, 1, 8, 32, 64), k)
+            C.conv3x3_fused_stats(_r(gen, 1, 8, 32, 64), k)
+
+
+@pytest.mark.parametrize("leaky", [None, 0.2])
+@pytest.mark.parametrize("reflect", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 64), (1, 6, 9, 24, 40)])
+def test_fused_conv_gradients_match_the_cpu(gen, shape, reflect, leaky):
+    """conv3x3_fused on CUDA tensors that require grad: one forward launch
+    and one backward (dx) launch, and the x, kernel and bias gradients of
+    sum(sin(y)) as the plain versions give them on the CPU, f32, within
+    1e-5 of each gradient's largest magnitude (f32 sums reordered)."""
+    b, h, w, ci, co = shape
+    ts = [_r(gen, b, h, w, ci), _r(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5),
+          _r(gen, co, scale=0.1)]
+    ts = [t.requires_grad_() for t in ts]
+    n = (C.conv3x3_fused.launches, C.conv3x3_fused_backward.launches)
+    got = torch.autograd.grad(torch.sin(C.conv3x3_fused(
+        *ts, reflect=reflect, leaky=leaky)).sum(), ts)
+    assert (C.conv3x3_fused.launches,
+            C.conv3x3_fused_backward.launches) == (n[0] + 1, n[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in ts]
+    want = torch.autograd.grad(torch.sin(C.conv3x3_fused(
+        *cpu, reflect=reflect, leaky=leaky)).sum(), cpu)
+    for name, a, r in zip(("dx", "dw", "db"), got, want):
+        torch.testing.assert_close(a.cpu(), r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("reflect", [False, True])
+def test_xla_pdw_gradients_match_the_cpu(gen, reflect):
+    """The dW route on the card: one conv3x3_dw launch, and the gradients
+    of sum(sin(y)) as on the CPU (f32, 1e-5 of each largest magnitude)."""
+    ts = [_r(gen, 2, 8, 32, 64), _r(gen, 3, 3, 64, 96, scale=1 / 24),
+          _r(gen, 96, scale=0.1)]
+    ts = [t.requires_grad_() for t in ts]
+    n = C.conv3x3_dw.launches
+    got = torch.autograd.grad(torch.sin(C.conv3x3_xla_pdw(
+        *ts, reflect)).sum(), ts)
+    assert C.conv3x3_dw.launches == n + 1
+    cpu = [t.detach().cpu().requires_grad_() for t in ts]
+    want = torch.autograd.grad(torch.sin(C.conv3x3_xla_pdw(
+        *cpu, reflect)).sum(), cpu)
+    for name, a, r in zip(("dx", "dw", "db"), got, want):
+        torch.testing.assert_close(a.cpu(), r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reflect", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 64), (1, 4, 16, 151, 200),
+                                   (3, 5, 7, 9, 70), (2, 32, 64, 64, 128)])
+def test_dw_kernel_matches_plain(gen, shape, reflect, dtype):
+    """conv3x3_dw.cu against conv3x3_dw_plain (odd channel counts, ragged
+    tiles, one and several splits of the rows), each output within 1e-4 of
+    its largest magnitude (f32 sums reordered; bf16 products are exact in
+    f32), and two launches give the same bits."""
+    b, h, w, ci, co = shape
+    x, g = _r(gen, b, h, w, ci, dtype=dtype), _r(gen, b, h, w, co,
+                                                  dtype=dtype)
+    n = C.conv3x3_dw.launches
+    got = C.conv3x3_dw(x, g, reflect=reflect)
+    assert C.conv3x3_dw.launches == n + 1
+    want = C.conv3x3_dw_plain(x, g, reflect=reflect)
+    for name, a, r in zip(("dw", "db"), got, want):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=name)
+    again = C.conv3x3_dw(x, g, reflect=reflect)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(1, 200, 300, 2304, 3), (2, 64, 90, 256, 7),
+                                   (1, 33, 70, 1000, 40)])
+def test_bigc_kernels_match_plain(gen, shape):
+    """The large-descriptor path: corr_fwd.cu and corr_bigc_bwd.cu against
+    the plain versions (B, N, M, C, D), N != M: o within 2e-5, lse within
+    1e-4, each gradient within 1e-4 of its largest magnitude; the backward
+    gives the same bits twice."""
+    b, n, m, c, d = shape
+    q, k = _unit(_r(gen, b, n, c)), _unit(_r(gen, b, m, c))
+    v, go = _r(gen, b, m, d), _r(gen, b, n, d)
+    o, lse = K.corr_fwd_kernel(q, k, v, 0.01)
+    po, plse = K.corr_fwd_plain(q, k, v, 0.01)
+    torch.testing.assert_close(o, po, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-4)
+    args = (q, k, v, 0.01, lse, go, (go * o).sum(-1))
+    got = KB.corr_bigc_bwd_kernel(*args)
+    want = K.corr_bwd_plain(*args)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=name)
+    again = KB.corr_bigc_bwd_kernel(*args)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_bigc_autograd_runs_the_kernels(gen):
+    """attend_corr_bigc on CUDA tensors that require grad: one forward and
+    one backward launch, gradients as the plain versions give them on the
+    CPU."""
+    q = _unit(_r(gen, 1, 70, 2304)).requires_grad_()
+    k = _unit(_r(gen, 1, 90, 2304)).requires_grad_()
+    v = _r(gen, 1, 90, 3).requires_grad_()
+    n = (KB.attend_corr_bigc.launches, KB.attend_corr_bigc_backward.launches)
+    got = torch.autograd.grad(
+        torch.sin(KB.attend_corr_bigc(q, k, v, 0.01)).sum(), (q, k, v))
+    assert (KB.attend_corr_bigc.launches,
+            KB.attend_corr_bigc_backward.launches) == (n[0] + 1, n[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        torch.sin(KB.attend_corr_bigc(*cpu, 0.01)).sum(), cpu)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a.cpu(), r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()))
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 128, 16), (1, 8, 8, 1),
