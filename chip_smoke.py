@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for the
 H100): builds the hand-written kernels, holds each against its plain
-PyTorch version at the shapes of its main path, runs small inference slices
+PyTorch version at the shapes of its main path (and every 3x3 conv shape
+of one flagship forward, timed beside cuDNN), runs small inference slices
 and small f32 train paths (each loss term's gradient, two steps) on the
 card against the plain versions on the CPU, then, at full width (256 px,
 ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
@@ -422,8 +423,8 @@ DW_REL_TOL = 1e-4
 
 
 def check_dw(C, g, *, b, h, w, ci, co, reflect, dtype, timed):
-    """conv3x3_dw's kernel against its plain version on one shape; with
-    `timed`, a determinism check (two launches, the same bits) and its
+    """conv3x3_dw's kernel against its plain version on one shape, and a
+    determinism check (two launches, the same bits); with `timed`, its
     record beside cuDNN's weight gradient."""
     dev = "cuda"
     x = torch.randn(b, h, w, ci, generator=g).to(dev, dtype)
@@ -439,11 +440,11 @@ def check_dw(C, g, *, b, h, w, ci, co, reflect, dtype, timed):
            f"{label}: max err / max |out| dw {errs[0]:.3g}/{scales[0]:.3g}, "
            f"db {errs[1]:.3g}/{scales[1]:.3g} <= {DW_REL_TOL:g} (f32 sums "
            f"reordered)")
-    if not timed:
-        return None
     again = C._conv3x3_dw_kernel(x, gy, reflect)
     _check(all(torch.equal(a, r) for a, r in zip(got, again)),
            f"{label}: two launches give the same bits")
+    if not timed:
+        return None
     ms = time_ms(lambda: C._conv3x3_dw_kernel(x, gy, reflect))
     plain_ms = time_ms(lambda: C.conv3x3_dw_plain(x, gy, reflect=reflect))
     xc = x.permute(0, 3, 1, 2)
@@ -976,14 +977,16 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
 
 
 KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
-    ("conv3x3.cu", ("conv3x3_kernel",)),
+    ("conv3x3.cu", ("conv3x3_bf16_kernel", "conv3x3_f32_kernel")),
+    ("conv operand copies", ("pad_channels", "k_major_weights")),
     ("conv3x3_onehot.cu", ("onehot_kernel",)),
     ("shift9_fwd.cu", ("shift9_fwd_kernel",)),
     ("shift9_bwd.cu", ("shift9_bwd_kernel",)),
     ("corr_fwd.cu", ("corr_fwd_kernel",)),
     ("corr_bwd.cu", ("corr_bwd_kernel",)),
     ("corr_bigc_bwd.cu", ("corr_bigc_bwd_kernel",)),
-    ("conv3x3_dw.cu", ("conv3x3_dw_kernel", "reduce_splits")),
+    ("conv3x3_dw.cu", ("conv3x3_dw_bf16_kernel", "conv3x3_dw_f32_kernel",
+                       "reduce_splits")),
     ("library conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
                               "implicit")),
     ("library matmul", ("gemm", "cutlass", "cublas")),
@@ -1039,6 +1042,108 @@ def profile_call(fn) -> None:
                 print(f"    {src}.cu {what}: {us / 1e3:.3f} ms")
 
 
+def inference_opt(cfg, match_kernel):
+    """The flagship inference configuration (bench.py:31-37) at batch 6."""
+    return cfg.test_defaults(
+        dataset_mode="ade20k", label_nc=150, contain_dontcare_label=True,
+        crop_size=256, load_size=256, batchSize=6, ngf=64,
+        use_attention=True, maskmix=True, PONO=True, PONO_C=True,
+        warp_mask_losstype="direct", match_kernel=match_kernel,
+        isTrain=False)
+
+
+def forward_conv_table(P, cfg, L, C, g) -> None:
+    """Every conv3x3.cu shape of one flagship mk3 B6 forward (bf16 policy,
+    full width), captured by tools/ab_dw.record_convs and routed by the
+    gates as nn.layers.conv2d routes them: per (B, H, W, Cin, Cout, ring,
+    statistics) the kernel against its plain version (phase 2's bf16
+    tolerances), its count per forward, its time, F.pad + F.conv2d's on the
+    same operands and the bound, then the totals over the forward (count x
+    time), so that the forward's conv3x3.cu time reads shape by shape."""
+    import collections
+    from cocosnet_tpu_torch.tools import ab_dw as AB
+    F = torch.nn.functional
+    L.set_compute_dtype(torch.bfloat16)
+    opt = inference_opt(cfg, 3)
+    nets = P.Pix2PixNets(opt, seed=0)
+    condition_weights(nets.corr, g, "cuda")
+    condition_weights(nets.gen, g, "cuda")
+    data = P.preprocess_input(opt, make_batch(g, 6, 256, 256,
+                                              opt.semantic_nc))
+    records = AB.record_convs(lambda: P.inference(nets, data))
+    L.set_compute_dtype(None)
+    del nets, data
+    torch.cuda.empty_cache()
+    shapes = collections.Counter()
+    for r in records:
+        xs, ks = r["x_shape"], r["kernel_shape"]
+        gate = dict(stride=r["stride"],
+                    padding=1 if r["reflect"] else r["padding"])
+        if r["onehot"]:
+            continue
+        stats = bool(r["want_stats"]
+                     and L.conv3x3_stats_supported(xs, ks, **gate))
+        if stats or (not r["want_stats"]
+                     and L.conv3x3_supported(xs, ks, **gate)):
+            shapes[tuple(xs) + (ks[3], r["reflect"], stats)] += 1
+    print("conv3x3.cu shapes of one mk3 B6 forward (bf16; ms per call; "
+          "cuDNN = F.pad + F.conv2d):", flush=True)
+    print(f"     {'B,H,W,Cin->Cout,ring,stats':>32s} {'count':>5s} "
+          f"{'kernel':>8s} {'cuDNN':>8s} {'bound':>8s} {'TFLOP/s':>8s}",
+          flush=True)
+    tot = collections.Counter()
+    for (b, h, w, ci, co, refl, stats), n in sorted(
+            shapes.items(), key=lambda kv: -kv[1]):
+        x = torch.randn(b, h, w, ci, generator=g).to("cuda", torch.bfloat16)
+        k = (torch.randn(3, 3, ci, co, generator=g) * (9 * ci) ** -0.5).to(
+            "cuda", torch.bfloat16)
+        bias = (torch.randn(co, generator=g) * 0.1).to("cuda")
+        label = (f"{b},{h},{w},{ci}->{co}," + ("reflect" if refl else "zero")
+                 + (",stats" if stats else ""))
+        got = _outs(C._conv3x3_kernel(x, k, bias, refl, None, stats))
+        want = _outs(C.conv3x3_plain(x, k, bias, reflect=refl,
+                                     want_stats=stats))
+        scale = float(want[0].float().abs().max())
+        err = _maxerr(got[0], want[0])
+        ok = err <= 2.0 ** -7 * scale
+        if stats:
+            ok = ok and _maxerr(got[1], want[1]) <= 1e-5 * scale and \
+                _maxerr(got[2], want[2]) <= 1e-4 * float(want[2].abs().max())
+        _check(ok, f"forward shape {label}: out max err {err:.3g} <= "
+               f"{2.0 ** -7 * scale:.3g}" + (", mean and var within 1e-5 x "
+                                             "scale and 1e-4 x max var"
+                                             if stats else ""))
+        del got, want
+        ms = time_ms(lambda: C._conv3x3_kernel(x, k, bias, refl, None,
+                                               stats), runs=10)
+        xc = x.permute(0, 3, 1, 2)
+        wc = k.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = bias.to(torch.bfloat16)
+        if refl:
+            lib = lambda: F.conv2d(  # noqa: E731
+                F.pad(xc, (1, 1, 1, 1), mode="reflect"), wc, bc)
+        else:
+            lib = lambda: F.conv2d(xc, wc, bc, padding=1)  # noqa: E731
+        lib_ms = time_ms(lib, runs=10)
+        flops = 2.0 * b * h * w * 9 * ci * co
+        bms, _ = bound_ms(_nbytes(x, k, bias) + b * h * w * co * 2, flops,
+                          BF16_FLOP_S)
+        tot.update(kernel=n * ms, cudnn=n * lib_ms, bound=n * bms,
+                   launches=n)
+        print(f"     {label:>32s} {n:>5d} {ms:>8.3f} {lib_ms:>8.3f} "
+              f"{bms:>8.3f} {flops / ms / 1e9:>8.1f}", flush=True)
+        del x, k, bias, xc, wc, bc
+    torch.cuda.empty_cache()
+    _check(tot["launches"] == CONVS["conv3x3_fused"]
+           + CONVS["conv3x3_fused_stats"],
+           f"the table covers the forward's {int(tot['launches'])} "
+           f"conv3x3.cu launches")
+    print(f"     totals over the forward: kernel {tot['kernel']:.2f} ms, "
+          f"cuDNN {tot['cudnn']:.2f} ms, bound {tot['bound']:.2f} ms",
+          flush=True)
+
+
 def flagship_inference(P, cfg, L, g, match_kernel, timed_runs) -> dict:
     """Phases 4 and 4b: flagship-width inference (batch 6 and batch 1, bf16
     policy, seeded random weights) at `match_kernel`: the launches of one
@@ -1046,12 +1151,7 @@ def flagship_inference(P, cfg, L, g, match_kernel, timed_runs) -> dict:
     peak memory (the phase's own) and profiles. Returns the launches."""
     L.set_compute_dtype(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
-    opt = cfg.test_defaults(
-        dataset_mode="ade20k", label_nc=150, contain_dontcare_label=True,
-        crop_size=256, load_size=256, batchSize=6, ngf=64,
-        use_attention=True, maskmix=True, PONO=True, PONO_C=True,
-        warp_mask_losstype="direct", match_kernel=match_kernel,
-        isTrain=False)
+    opt = inference_opt(cfg, match_kernel)
     nets = P.Pix2PixNets(opt, seed=0)
     condition_weights(nets.corr, g, "cuda")
     condition_weights(nets.gen, g, "cuda")
@@ -1194,7 +1294,7 @@ def main() -> None:
     print(smi, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build_all()
     for name in _build.SOURCES:
         _build.library(name)
@@ -1252,19 +1352,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     # the training dW at every shape of the COCOSNET_PALLAS_DW=1 gate (batch
     # 8, both rings, f32 and bf16), timed at its most frequent one (128->512
-    # @64^2, 40 calls per step); the fused conv's backward dx at 512->512
+    # @64^2, 40 calls per step: the row) and at 512->512; the fused conv's
+    # backward dx at 512->512
     for dtype in (torch.float32, torch.bfloat16):
         for h, w, ci, co, _ in sorted(C.DW_WINNERS):
             for reflect in (True, False):
                 timed = (dtype == torch.bfloat16 and reflect
-                         and (ci, co) == (128, 512))
+                         and (ci, co) in ((128, 512), (512, 512)))
                 r = check_dw(C, g, b=8, h=h, w=w, ci=ci, co=co,
                              reflect=reflect, dtype=dtype, timed=timed)
-                if timed:
+                if timed and (ci, co) == (128, 512):
                     rows["conv3x3_dw"] = r
     torch.cuda.empty_cache()
     rows["conv3x3_fused_backward"] = check_fused_bwd(
         C, g, b=8, h=64, w=64, ci=512, co=512, dtype=torch.bfloat16)
+    forward_conv_table(P, cfg, L, C, g)
     # the large-descriptor correlation at the A/B tool's shape (batch 6,
     # 64 x 64, C = 9 x 256, D = 3), then a ragged N != M, untimed
     rows["attend_corr_bigc"] = check_bigc(Kc, TC, g, b=6, n=4096, m=4096,
@@ -1361,6 +1463,8 @@ def main() -> None:
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
                     path=path, launches=runs[path][k], **rows[k])
                for k, (source, replaces, path) in src.items()]
+    print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.0f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own shared
 library with a plain C interface, under `build/kernels/` at the repository
-root, named by a hash of the source so an edited source rebuilds. A build
+root, named by a hash of the source and of the headers it includes (`#include
+"..."`, followed recursively), so an edited source or header rebuilds. A build
 happens at the first use of a kernel, or for all of them at once through
 `build_all()` (one `nvcc` process per source, started together). Nothing
 here runs at import time.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,7 +43,7 @@ SIGNATURES = {
         "cocosnet_shift9_bwd_smem": [_I, _I],
     },
     "conv3x3": {
-        "cocosnet_conv3x3": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+        "cocosnet_conv3x3": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
         "cocosnet_conv3x3_tile_pixels": [],
     },
     "conv3x3_onehot": {
@@ -57,8 +59,8 @@ SIGNATURES = {
         "cocosnet_corr_bwd_smem": [_I, _I],
     },
     "conv3x3_dw": {
-        "cocosnet_conv3x3_dw": [_P] * 5 + [_I] * 8 + [_P],
-        "cocosnet_conv3x3_dw_splits": [_I] * 5,
+        "cocosnet_conv3x3_dw": [_P] * 7 + [_I] * 8 + [_P],
+        "cocosnet_conv3x3_dw_splits": [_I] * 6,
     },
     "corr_bigc_bwd": {
         "cocosnet_corr_bigc_bwd": [_P] * 9 + [_I] * 5 + [_F, _P],
@@ -78,9 +80,31 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _source_bytes(name: str) -> bytes:
+    """csrc/<name>.cu followed by every header it includes with quotes,
+    recursively, each once, in the order they are first met."""
+    seen, parts = set(), []
+
+    def visit(path):
+        path = os.path.normpath(path)
+        if path in seen:
+            return
+        seen.add(path)
+        with open(path, "rb") as f:
+            data = f.read()
+        parts.append(data)
+        for inc in _INCLUDE.findall(data):
+            visit(os.path.join(os.path.dirname(path), inc.decode()))
+
+    visit(os.path.join(CSRC, name + ".cu"))
+    return b"".join(parts)
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(_source_bytes(name) + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 

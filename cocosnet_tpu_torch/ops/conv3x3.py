@@ -95,6 +95,22 @@ def _check_kernel_args(x, kernel, what):
                          f"{tuple(kernel.shape)}")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _pad_scratch(x: torch.Tensor, *shapes):
+    """Per operand shape (..., C): for a bf16 launch whose C is not a
+    multiple of 8, scratch of (..., C rounded up to 8) bf16 for the
+    channel-padded copy the kernel reads (csrc/conv3x3_common.cuh
+    `pad_channels`); else None."""
+    if x.dtype != torch.bfloat16:
+        return (None,) * len(shapes)
+    return tuple(None if s[-1] % 8 == 0 else torch.empty(
+        (*s[:-1], -(-s[-1] // 8) * 8), dtype=torch.bfloat16, device=x.device)
+        for s in shapes)
+
+
 def _conv3x3_kernel(x, kernel, bias, reflect, leaky, want_stats):
     """Launches csrc/conv3x3.cu."""
     _check_kernel_args(x, kernel, "conv3x3")
@@ -113,11 +129,16 @@ def _conv3x3_kernel(x, kernel, bias, reflect, leaky, want_stats):
         tiles = -(-(h * w) // lib.cocosnet_conv3x3_tile_pixels())
         stats = torch.empty((b, tiles, 2, cout), dtype=torch.float32,
                             device=x.device)
+    (x_pad,) = _pad_scratch(x, (b, h, w, c))
+    # bf16: scratch for the K-major weights the kernel reads
+    k_t = None if x.dtype != torch.bfloat16 else torch.empty(
+        (cout, 3, 3, -(-c // 8) * 8), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.cocosnet_conv3x3(
             x.data_ptr(), k.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            stats.data_ptr() if want_stats else None, b, h, w, c, cout,
-            int(reflect), int(leaky is not None), float(leaky or 0.0),
+            stats.data_ptr() if want_stats else None, _ptr(x_pad),
+            _ptr(k_t), b, h, w, c, cout, int(reflect),
+            int(leaky is not None), float(leaky or 0.0),
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "conv3x3")
@@ -385,9 +406,9 @@ def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor, *,
 
 
 def _conv3x3_dw_kernel(x, g, reflect):
-    """Launches csrc/conv3x3_dw.cu: per (tap, 64 input channels, 64 output
-    channels, split of the batch's rows) a partial dW, then, with more than
-    one split, the ordered sum of the partials."""
+    """Launches csrc/conv3x3_dw.cu: per (tap, input-channel tile,
+    output-channel tile, split of the batch's pixels) a partial dW, then,
+    with more than one split, the ordered sum of the partials."""
     if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"conv3x3_dw: kernel takes f32 or bf16, got "
                          f"{x.dtype}")
@@ -404,16 +425,18 @@ def _conv3x3_dw_kernel(x, g, reflect):
     g = g.to(device=x.device, dtype=x.dtype).contiguous()
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     db = torch.empty(cout, dtype=torch.float32, device=x.device)
-    splits = lib.cocosnet_conv3x3_dw_splits(b, h, w, cin, cout)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    splits = lib.cocosnet_conv3x3_dw_splits(b, h, w, cin, cout, is_bf16)
     part = None
     if splits > 1:
         part = torch.empty((splits, 9 * cin * cout + cout),
                            dtype=torch.float32, device=x.device)
+    x_pad, g_pad = _pad_scratch(x, (b, h, w, cin), (b, h, w, cout))
     with torch.cuda.device(x.device):
         err = lib.cocosnet_conv3x3_dw(
             x.data_ptr(), g.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            None if part is None else part.data_ptr(), b, h, w, cin, cout,
-            int(reflect), int(x.dtype == torch.bfloat16), splits,
+            _ptr(part), _ptr(x_pad), _ptr(g_pad), b, h, w, cin, cout,
+            int(reflect), is_bf16, splits,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "conv3x3_dw")
     return dw, db

@@ -27,6 +27,7 @@ from cocosnet_tpu.ops import pallas_conv as PC
 from cocosnet_tpu_torch.nn import layers as TL
 from cocosnet_tpu_torch.ops import conv3x3 as C
 from cocosnet_tpu_torch.tools.ab_dw import predicted_launches, record_convs
+from test_torch_threads import torch_threads  # noqa: F401
 
 
 def _close(got, want, rel):

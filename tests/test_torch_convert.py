@@ -15,6 +15,7 @@ from cocosnet_tpu.train.checkpoints import (convert_torch_module,
 from cocosnet_tpu_torch import config as TCFG
 from cocosnet_tpu_torch import pix2pix as TP
 from cocosnet_tpu_torch.convert import flax_path, load_flax_variables
+from test_torch_threads import torch_threads  # noqa: F401
 
 OPT = dict(dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,
            crop_size=64, load_size=64, batchSize=2, ngf=8,

@@ -30,6 +30,7 @@ from cocosnet_tpu.ops import correlation as JC
 from cocosnet_tpu.ops.pallas_corr import attend_pallas as j_attend_pallas
 from cocosnet_tpu_torch.ops import corr as K
 from cocosnet_tpu_torch.ops import correlation as TC
+from test_torch_threads import torch_threads  # noqa: F401
 
 TAU = 0.01
 

@@ -28,6 +28,7 @@ from cocosnet_tpu.ops import image as JI
 from cocosnet_tpu.ops.pallas_corr_bigc import attend_pallas_bigc
 from cocosnet_tpu_torch.ops import corr_bigc as KB
 from cocosnet_tpu_torch.ops import image as TI
+from test_torch_threads import torch_threads  # noqa: F401
 
 TAU = 0.01
 

@@ -46,9 +46,23 @@ def _tol(ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reflect", [False, True])
 @pytest.mark.parametrize("stats", [False, True])
-@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 64), (1, 4, 16, 151, 135),
-                                   (1, 3, 5, 7, 9)])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 16, 64, 64), (1, 4, 16, 151, 135), (1, 3, 5, 7, 9),
+    # channel counts not a multiple of 8 (the channel-padded copy), a
+    # ragged last output-channel tile, H W = 216 not a multiple of the
+    # 128-pixel tile
+    (2, 9, 24, 407, 200),
+    # Cin a multiple of 8 but not of the 64-channel stage, a ragged second
+    # 128-channel tile, three samples of 160 pixels
+    (3, 10, 16, 24, 136),
+    # the 64-channel tile (Cout <= 64), H W = 240
+    (2, 12, 20, 128, 48),
+    # the smallest reflect ring
+    (2, 2, 2, 64, 64)])
 def test_conv3x3_kernel_matches_plain(gen, shape, stats, reflect, dtype):
+    """Every branch of csrc/conv3x3.cu (both tile widths, inputs with and
+    without the channel-padded copy, ragged pixel and channel tiles, the
+    statistics epilogue) against conv3x3_plain on the same operands."""
     b, h, w, ci, co = shape
     x = _r(gen, b, h, w, ci, dtype=dtype)
     k = _r(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5, dtype=dtype)
@@ -228,7 +242,8 @@ def test_conv_kernels_refuse_inputs_that_require_grad(gen, entry):
 
 @pytest.mark.parametrize("leaky", [None, 0.2])
 @pytest.mark.parametrize("reflect", [False, True])
-@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 64), (1, 6, 9, 24, 40)])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 64), (1, 6, 9, 24, 40),
+                                   (2, 9, 24, 151, 136)])
 def test_fused_conv_gradients_match_the_cpu(gen, shape, reflect, leaky):
     """conv3x3_fused on CUDA tensors that require grad: one forward launch
     and one backward (dx) launch, and the x, kernel and bias gradients of
@@ -252,6 +267,32 @@ def test_fused_conv_gradients_match_the_cpu(gen, shape, reflect, leaky):
 
 
 @pytest.mark.parametrize("reflect", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 64), (1, 6, 9, 24, 40),
+                                   (2, 9, 24, 407, 151), (2, 10, 16, 136, 24),
+                                   (2, 2, 2, 64, 64)])
+def test_fused_backward_dx_bf16_matches_plain(gen, shape, reflect):
+    """The fused conv's backward dx in bf16 (the rotated-kernel launch of
+    csrc/conv3x3.cu, which swaps the channel counts, then the reflect
+    ring's scatter) against conv3x3_fused_backward_plain on the same
+    operands, within one bf16 rounding of the scale (the scatter rounds
+    once more)."""
+    b, h, w, ci, co = shape
+    x = _r(gen, b, h, w, ci, dtype=torch.bfloat16)
+    k = _r(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5, dtype=torch.bfloat16)
+    gy = _r(gen, b, h, w, co, dtype=torch.bfloat16)
+    need = (True, False, False)
+    n = C.conv3x3_fused_backward.launches
+    got = C.conv3x3_fused_backward(x, k, None, gy, reflect=reflect,
+                                   need=need)[0]
+    assert C.conv3x3_fused_backward.launches == n + 1
+    want = C.conv3x3_fused_backward_plain(x, k, None, gy, reflect=reflect,
+                                          need=need)[0]
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=2 * _tol(want, torch.bfloat16))
+
+
+@pytest.mark.parametrize("reflect", [False, True])
 def test_xla_pdw_gradients_match_the_cpu(gen, reflect):
     """The dW route on the card: one conv3x3_dw launch, and the gradients
     of sum(sin(y)) as on the CPU (f32, 1e-5 of each largest magnitude)."""
@@ -272,12 +313,21 @@ def test_xla_pdw_gradients_match_the_cpu(gen, reflect):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reflect", [False, True])
-@pytest.mark.parametrize("shape", [(2, 8, 16, 64, 64), (1, 4, 16, 151, 200),
-                                   (3, 5, 7, 9, 70), (2, 32, 64, 64, 128)])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 16, 64, 64), (1, 4, 16, 151, 200), (3, 5, 7, 9, 70),
+    (2, 32, 64, 64, 128),
+    # channel counts not a multiple of 8 on both sides, ragged tiles
+    (2, 9, 24, 407, 136),
+    # the smallest reflect ring; one 32-pixel chunk, so one split
+    (2, 2, 2, 7, 9),
+    # 16-byte loads, Cin not a multiple of 128, a ragged second Cout tile
+    (3, 10, 16, 24, 136),
+    # tiles that fill whole waves: one split over 128 pixels
+    (2, 8, 8, 1024, 1408)])
 def test_dw_kernel_matches_plain(gen, shape, reflect, dtype):
     """conv3x3_dw.cu against conv3x3_dw_plain (odd channel counts, ragged
-    tiles, one and several splits of the rows), each output within 1e-4 of
-    its largest magnitude (f32 sums reordered; bf16 products are exact in
+    tiles, one and several splits of the pixels), each output within 1e-4
+    of its largest magnitude (f32 sums reordered; bf16 products are exact in
     f32), and two launches give the same bits."""
     b, h, w, ci, co = shape
     x, g = _r(gen, b, h, w, ci, dtype=dtype), _r(gen, b, h, w, co,
@@ -292,6 +342,26 @@ def test_dw_kernel_matches_plain(gen, shape, reflect, dtype):
                                    atol=1e-4 * float(r.abs().max()), msg=name)
     again = C.conv3x3_dw(x, g, reflect=reflect)
     assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_dw_splits_fill_two_waves(gen):
+    """The split count of csrc/conv3x3_dw.cu: one where the tiles alone
+    fill whole waves of the card or there is one 32-pixel chunk, several
+    otherwise, and tiles x splits at least two waves of 132 SMs at the
+    flagship's dW shapes (batch 8), 512->512 among them."""
+    from cocosnet_tpu_torch.ops import _build
+    lib = _build.library("conv3x3_dw")
+    for is_bf16, tile in ((1, 128), (0, 64)):
+        assert lib.cocosnet_conv3x3_dw_splits(2, 8, 8, 1024, 1408,
+                                              is_bf16) == 1
+        assert lib.cocosnet_conv3x3_dw_splits(2, 2, 2, 7, 9, is_bf16) == 1
+        assert lib.cocosnet_conv3x3_dw_splits(2, 32, 64, 64, 128,
+                                              is_bf16) > 1
+        for h, w, ci, co, _ in C.DW_WINNERS | {(8, 8, 154, 128, True),
+                                               (64, 64, 3, 128, True)}:
+            s = lib.cocosnet_conv3x3_dw_splits(8, h, w, ci, co, is_bf16)
+            tiles = 9 * -(-ci // tile) * -(-co // tile)
+            assert tiles * s >= 2 * 132, (h, w, ci, co, is_bf16, s)
 
 
 @pytest.mark.parametrize("shape", [(1, 200, 300, 2304, 3), (2, 64, 90, 256, 7),

@@ -15,6 +15,7 @@ from cocosnet_tpu.nn import norms as JN
 from cocosnet_tpu_torch.convert import load_flax_variables
 from cocosnet_tpu_torch.nn import layers as L
 from cocosnet_tpu_torch.nn import norms as N
+from test_torch_threads import torch_threads  # noqa: F401
 
 
 def _x(seed, *shape):

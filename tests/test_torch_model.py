@@ -38,6 +38,7 @@ from cocosnet_tpu_torch.nn.layers import OneHotLabels as TOneHot
 from cocosnet_tpu_torch.ops import conv3x3 as C
 from cocosnet_tpu_torch.ops import corr as K
 from cocosnet_tpu_torch.ops import shift9 as S
+from test_torch_threads import torch_threads  # noqa: F401
 
 FLAGSHIP_SMALL = dict(
     dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,

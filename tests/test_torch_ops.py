@@ -17,6 +17,7 @@ from cocosnet_tpu.ops import pallas_conv as JC
 from cocosnet_tpu_torch.nn import layers as L
 from cocosnet_tpu_torch.ops import conv3x3 as C
 from cocosnet_tpu_torch.ops import image as I
+from test_torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

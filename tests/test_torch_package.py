@@ -11,6 +11,7 @@ import torch
 
 from cocosnet_tpu_torch import config as TCFG
 from cocosnet_tpu_torch import pix2pix as TP
+from test_torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "cocosnet_tpu_torch")

@@ -18,6 +18,7 @@ from cocosnet_tpu.ops.corr_shift import attend_unfold as j_attend_unfold
 from cocosnet_tpu.ops.pallas_shift9 import attend_shift9 as j_attend_shift9
 from cocosnet_tpu_torch.ops import shift9 as S
 from cocosnet_tpu_torch.ops.corr_shift import attend_unfold
+from test_torch_threads import torch_threads  # noqa: F401
 
 SHAPES = [(8, 8, 16, 3), (32, 8, 16, 5), (16, 16, 8, 3)]
 

@@ -29,6 +29,7 @@ import torch
 from cocosnet_tpu.ops.corr_shift import attend_unfold as j_attend_unfold
 from cocosnet_tpu.ops.pallas_shift9 import attend_shift9 as j_attend_shift9
 from cocosnet_tpu_torch.ops import shift9 as S
+from test_torch_threads import torch_threads  # noqa: F401
 
 # (H, W, C, D): test_corr_shift.py's gradient shape and one at W = 16
 SHAPES = [(16, 8, 16, 3), (8, 16, 16, 3)]

@@ -52,6 +52,7 @@ from cocosnet_tpu_torch.ops import image as TI
 from cocosnet_tpu_torch.ops import shift9 as S
 from cocosnet_tpu_torch.train import state as TS
 from cocosnet_tpu_torch.train import steps as TST
+from test_torch_threads import torch_threads  # noqa: F401
 
 OPT = dict(dataset_mode="ade20k", label_nc=5, contain_dontcare_label=True,
            crop_size=64, load_size=64, batchSize=2, ngf=8, ndf=8,

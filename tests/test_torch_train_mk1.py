@@ -36,6 +36,7 @@ from cocosnet_tpu_torch.train import state as TS
 from cocosnet_tpu_torch.train import steps as TST
 from test_torch_train import (LOSS_KEYS, OPT, _batch, _jnp, _spectral,
                               _variables)
+from test_torch_threads import torch_threads  # noqa: F401
 
 MK1 = dict(OPT, match_kernel=1)
 ROUTES = ("library", "kernels")

@@ -38,6 +38,7 @@ from cocosnet_tpu_torch.tools.ab_dw import predicted_launches, record_convs
 from cocosnet_tpu_torch.train import state as TS
 from cocosnet_tpu_torch.train import steps as TST
 from test_torch_train import LOSS_KEYS, OPT, _draw
+from test_torch_threads import torch_threads  # noqa: F401
 
 ROUTES_OPT = dict(OPT, label_nc=12, crop_size=128, load_size=128,
                   aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16)
