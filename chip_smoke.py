@@ -27,7 +27,9 @@ as the routing predicts.
 Prints the card's name and power limit, one line per check, a `kernels`
 JSON line (per kernel: its main path and its launches there, max error
 against its plain version, its time, the plain version's, the library
-call's and the least time the card could take), the device time of each
+call's and the least time the card could take; the correlation kernels'
+library call is one SDPA call, on the unfolded 3x3 descriptors for the
+shift9 pair), the device time of each
 path's forward or train step by kernel family (torch.profiler) with the
 device's idle share, and as its last line {"ok": true, "device": {...}}.
 Exits non-zero, with no such line, if there is no CUDA device, a kernel
@@ -47,10 +49,15 @@ import time
 import torch
 
 # published peaks of one H100 SXM (dense): bytes/s of HBM3, f32 FLOP/s
-# outside the tensor cores, bf16 FLOP/s on the tensor cores
+# outside the tensor cores, bf16 and TF32 FLOP/s on the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+TF32_FLOP_S = 495e12
+# tensor-core passes per product of a split-precision product: 3xTF32 (what
+# the correlation backward kernel, csrc/corr_bwd.cu, issues) or bf16x3 (the
+# cheapest split that holds BWD_REL_TOL, tests/test_torch_corr_split.py)
+SPLIT_PASSES = 3
 TIMED_RUNS = 25
 
 
@@ -213,16 +220,60 @@ def check_shift9(S, g, *, pono_c):
     plain_ms = time_ms(lambda: S.shift9_core_plain(f3, g3, v, qv, kv, w),
                        runs=5)
     wrapper_ms = time_ms(lambda: S.attend_shift9(f, gg, v, 0.01, pono_c))
-    torch.cuda.empty_cache()
     n = h * w
     flops = 2.0 * b * n * n * (3 * c + d)
     nb = _nbytes(f3, g3, v, qv, kv) + b * n * (d + 1) * 4
     bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    del f3, g3, qv, kv
+    torch.cuda.empty_cache()
+    lib = shift9_yardstick(f, gg, v, pono_c, o)
     print(f"     shift9 pono_c={pono_c}: kernel {ms:.3f} ms (with the "
-          f"torch prep {wrapper_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
-          f"{bms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP)", flush=True)
+          f"torch prep {wrapper_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+          f"{lib['library']} {lib['library_ms']:.3f} ms (+ descriptors "
+          f"{lib['prep_ms']:.3f} ms), bound {bms:.3f} ms ({by}, "
+          f"{flops / 1e9:.1f} GFLOP)", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=lib["library_ms"],
+                library=lib["library"])
+
+
+def shift9_yardstick(f, gg, v, pono_c, o, go=None) -> dict:
+    """The library yardstick of the shift9 kernels (never on a path of the
+    port): the centered, L2-normalized 3x3-unfold descriptors (C = 9 x 256
+    = 2304) that the kernels never form, built as tools/bench_corr.
+    descriptor builds them (ops/image.unfold_descriptors), then one
+    F.scaled_dot_product_attention f32 call on them, the forward, or with
+    an output gradient `go` the forward and backward. First checks that the
+    call computes the kernels' function (within 1e-4 of the kernel
+    forward's output o); returns its time, the descriptors' own time and
+    the SDPA backend that ran."""
+    from cocosnet_tpu_torch.tools.bench_corr import descriptor
+
+    def prep():
+        return descriptor(f, pono_c), descriptor(gg, pono_c)
+
+    prep_ms = time_ms(prep, runs=5)
+    q, k = prep()
+    err = _maxerr(sdpa(q, k, v, CORR_TAU), o)
+    _check(err <= 1e-4, f"shift9 yardstick pono_c={pono_c}: SDPA on the "
+           f"unfolded descriptors vs the kernel: max err {err:.3g} <= 1e-4")
+    if go is None:
+        what = "forward"
+
+        def lib():
+            sdpa(q, k, v, CORR_TAU)
+    else:
+        what = "forward + backward"
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def lib():
+            torch.autograd.grad(sdpa(qr, kr, vr, CORR_TAU), (qr, kr, vr), go)
+    ms = time_ms(lib, runs=5)
+    backend = sdpa_backend(lib)
+    torch.cuda.empty_cache()
+    return dict(library_ms=ms, prep_ms=prep_ms,
+                library=f"F.scaled_dot_product_attention f32 {what} on the "
+                        f"unfolded C = 2304 descriptors, {backend}")
 
 
 BWD_NAMES = ("dF3", "dqv", "dG3", "dkv", "dV")
@@ -274,6 +325,7 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
     ms = time_ms(lambda: S.shift9_bwd_kernel(*args), runs=5)
     plain_ms = time_ms(lambda: S.shift9_bwd_plain(*args), runs=3)
     torch.cuda.empty_cache()
+    lib = shift9_yardstick(f, gg, v, pono_c, o, go)
     c3 = 3 * c
     # the function needs S3 = F3 G3^T and dP = gO V^T once each, then dF3 =
     # dS3 G3, dG3 = dS3^T F3 and dV = P^T gO: 2 B N^2 (3 3C + 2 D). The
@@ -284,11 +336,13 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
     nb = _nbytes(f3, g3, v, qv, kv, lse, go, dd, *got)
     bms, by = bound_ms(nb, flops, F32_FLOP_S)
     print(f"     shift9 backward pono_c={pono_c}: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({by}, "
-          f"{flops / 1e9:.1f} GFLOP; the two-pass design does "
+          f"{plain_ms:.3f} ms, {lib['library']} {lib['library_ms']:.3f} ms "
+          f"(+ descriptors {lib['prep_ms']:.3f} ms), bound {bms:.3f} ms "
+          f"({by}, {flops / 1e9:.1f} GFLOP; the two-pass design does "
           f"{design_flops / 1e9:.1f})", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=None)
+                bound_ms=bms, bound_by=by, library_ms=lib["library_ms"],
+                library=lib["library"])
 
 
 def corr_inputs(g, b, n, m, c=256, d=154):
@@ -362,11 +416,36 @@ def check_corr(Kc, g, *, b, n, timed):
                 library=f"F.scaled_dot_product_attention f32, {backend}")
 
 
+def tc_bound(nb: int, flops: float):
+    """(least time in ms, what bounds it, the 3xTF32 bound in ms, the
+    f32-FMA bound in ms) of the correlation backward's `flops`: the least
+    time is that of the cheapest split that holds BWD_REL_TOL, bf16x3
+    (SPLIT_PASSES tensor-core passes at the bf16 rate); beside it the split
+    the kernel issues, 3xTF32 (as many passes at the TF32 rate), and the
+    same flops at the f32 FMA rate, the bound of a design without tensor
+    cores."""
+    bms, by = bound_ms(nb, SPLIT_PASSES * flops, BF16_FLOP_S)
+    return (bms, by, bound_ms(nb, SPLIT_PASSES * flops, TF32_FLOP_S)[0],
+            bound_ms(nb, flops, F32_FLOP_S)[0])
+
+
+def _issued_flops(b, n, m, c, d, dv_cols):
+    """The flops the correlation backward kernels issue per pass: the
+    scores over C and over D padded to 32-wide chunks, dq and dk over C
+    padded to 128-column tiles, dv over D padded to its dv_cols-column
+    tiles, all over N and M padded to 128-row tiles."""
+    def up(x, t):
+        return -(-x // t) * t
+    npad, mpad = up(n, 128), up(m, 128)
+    return 2.0 * b * npad * mpad * (up(c, 32) + up(d, 32) + 2 * up(c, 128)
+                                    + up(d, dv_cols))
+
+
 def check_corr_bwd(Kc, g, *, b, n, timed):
     """The backward kernel against its plain version at (B, N = M, C 256,
     D 154), from the kernel forward's lse and a random output gradient; with
-    `timed`, its record, the library time being SDPA's forward and
-    backward."""
+    `timed`, a determinism check and its record, the library time being
+    SDPA's forward and backward."""
     q, k, v = corr_inputs(g, b, n, n)
     go = torch.randn(b, n, 154, generator=g).to("cuda")
     o, lse = Kc.corr_fwd_kernel(q, k, v, CORR_TAU)
@@ -385,6 +464,10 @@ def check_corr_bwd(Kc, g, *, b, n, timed):
            + f" <= {BWD_REL_TOL:g} (f32 sums reordered, 1/tau in the logits)")
     if not timed:
         return None
+    again = Kc.corr_bwd_kernel(*args)
+    _check(all(torch.equal(a, r) for a, r in zip(got, again)),
+           f"corr backward B{b} N=M={n}: two launches give the same bits")
+    del again
     ms = time_ms(lambda: Kc.corr_bwd_kernel(*args), runs=5)
     plain_ms = time_ms(lambda: Kc.corr_bwd_plain(*args), runs=3)
     torch.cuda.empty_cache()
@@ -397,22 +480,24 @@ def check_corr_bwd(Kc, g, *, b, n, timed):
     backend = sdpa_backend(lib)
     torch.cuda.empty_cache()
     # the function needs S = q k^T and dP = gO v^T once each, then dq, dk
-    # and dv: 2 B N M (3 C + 2 D). The two-pass design recomputes S and dP
-    # in its key pass, 2 B N M (4 C + 3 D); printed beside the bound
+    # and dv: 2 B N M (3 C + 2 D), each as 3 split passes for the bound; the
+    # tiles' padded count is printed beside it
     flops = 2.0 * b * n * n * (3 * 256 + 2 * 154)
-    design_flops = 2.0 * b * n * n * (4 * 256 + 3 * 154)
+    issued = _issued_flops(b, n, n, 256, 154, 96)
     nb = _nbytes(*args[:3], *args[4:], *got)
-    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     corr backward B{b} N=M={n}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, SDPA f32 forward + backward ({backend}) "
-          f"{library_ms:.3f} ms, bound {bms:.3f} ms ({by}, "
-          f"{flops / 1e9:.1f} GFLOP; the two-pass design does "
-          f"{design_flops / 1e9:.1f}, {1e3 * design_flops / F32_FLOP_S:.3f}"
-          f" ms)", flush=True)
+          f"{library_ms:.3f} ms, bound {bms:.3f} ms ({by}: {flops / 1e9:.1f}"
+          f" GFLOP x {SPLIT_PASSES} bf16 passes; 3xTF32 {tf32_ms:.3f} ms; "
+          f"f32 FMA {fma_ms:.3f} ms); the tiles issue {issued / 1e9:.1f} "
+          f"GFLOP per pass, {SPLIT_PASSES * issued / ms / 1e9:.1f} TFLOP/s "
+          f"of TF32", flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=library_ms,
                 library=f"F.scaled_dot_product_attention f32 forward + "
-                        f"backward, {backend}")
+                        f"backward, {backend}", tf32x3_bound_ms=tf32_ms,
+                fma_bound_ms=fma_ms)
 
 
 # each dW and db within this fraction of its largest magnitude: f32 sums
@@ -546,10 +631,10 @@ def check_bigc(Kc, TC, g, *, b, n, m, timed):
 
 
 def check_bigc_bwd(Kc, KB, TC, g, *, b, n, m, timed):
-    """corr_bigc_bwd.cu against its plain version (corr_bwd_plain), from the
-    kernel forward's lse and a random output gradient; with `timed`, a
-    determinism check and its record beside SDPA's and attend_chunked's
-    forward + backward."""
+    """corr_bwd.cu at C 2304 against its plain version (corr_bwd_plain),
+    from the kernel forward's lse and a random output gradient; with
+    `timed`, a determinism check and its record beside SDPA's and
+    attend_chunked's forward + backward."""
     q, k, v = corr_inputs(g, b, n, m, c=BIGC_C, d=BIGC_D)
     go = torch.randn(b, n, BIGC_D, generator=g).to("cuda")
     o, lse = Kc.corr_fwd_kernel(q, k, v, CORR_TAU)
@@ -588,19 +673,22 @@ def check_bigc_bwd(Kc, KB, TC, g, *, b, n, m, timed):
     torch.cuda.empty_cache()
     c, d = BIGC_C, BIGC_D
     flops = 2.0 * b * n * m * (3 * c + 2 * d)
-    design_flops = 2.0 * b * n * m * (4 * c + 3 * d)
+    issued = _issued_flops(b, n, m, c, d, 32)
     nb = _nbytes(*args[:3], *args[4:], *got)
-    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
           f"f32 forward + backward ({backend}) {library_ms:.3f} ms, "
           f"attend_chunked forward + backward {chunked_ms:.3f} ms, bound "
-          f"{bms:.3f} ms ({by}, {flops / 1e12:.3f} TFLOP; the two-pass "
-          f"design does {design_flops / 1e12:.3f}, "
-          f"{1e3 * design_flops / F32_FLOP_S:.3f} ms)", flush=True)
+          f"{bms:.3f} ms ({by}: {flops / 1e12:.3f} TFLOP x {SPLIT_PASSES} "
+          f"bf16 passes; 3xTF32 {tf32_ms:.3f} ms; f32 FMA {fma_ms:.3f} ms);"
+          f" the tiles issue {issued / 1e12:.3f} TFLOP per pass, "
+          f"{SPLIT_PASSES * issued / ms / 1e9:.1f} TFLOP/s of TF32",
+          flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=library_ms,
                 library=f"F.scaled_dot_product_attention f32 forward + "
-                        f"backward, {backend}")
+                        f"backward, {backend}", tf32x3_bound_ms=tf32_ms,
+                fma_bound_ms=fma_ms)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -741,9 +829,14 @@ def make_batch(g, b, h, w, nc):
 def reference_check(P, cfg, g, match_kernel):
     """The whole slice on the card (kernels, f32) against the same weights
     and batch through the plain versions on the CPU, at a small input
-    (128 x 256, ngf 16, 13 classes: a 32 x 64 feature map) that takes
-    every kernel of the path; atol 5e-4 as the CPU parity tests hold the
+    (128 x 256, ngf 16, 13 classes: a 32 x 64 feature map) that takes the
+    correlation kernel of the path and both dense conv kernels; the one-hot
+    conv's gate wants Cout >= 64 and densifies the labels at ngf 16, as the
+    JAX gate does (phase 2's onehot check and the flagship forward hold that
+    kernel). The launches must be what the routing predicts from the
+    forward's recorded convs; atol 5e-4 as the CPU parity tests hold the
     slice against the JAX package."""
+    from cocosnet_tpu_torch.tools import ab_dw as AB
     opt = cfg.test_defaults(
         dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,
         crop_size=256, load_size=256, aspect_ratio=2.0, batchSize=1, ngf=16,
@@ -759,12 +852,20 @@ def reference_check(P, cfg, g, match_kernel):
     gpu.gen.load_state_dict(cpu.gen.state_dict())
     want = P.inference(cpu, P.preprocess_input(opt, batch, device="cpu"))
     counted = _counted()
-    path = [k for k, n in INFERENCE_LAUNCHES[match_kernel].items() if n]
-    before = {k: counted[k].launches for k in path}
-    got = P.inference(gpu, P.preprocess_input(opt, batch, device="cuda"))
-    moved = {k: counted[k].launches - before[k] for k in path}
-    _check(all(moved.values()), f"match_kernel {match_kernel} small input "
-           f"launched every kernel of its path {moved}")
+    _zero_counts(counted)
+    res = []
+    records = AB.record_convs(lambda: res.append(P.inference(
+        gpu, P.preprocess_input(opt, batch, device="cuda"))))
+    got = res[0]
+    moved = {k: fn.launches for k, fn in counted.items()}
+    corr = {k: n for k, n in INFERENCE_LAUNCHES[match_kernel].items()
+            if k.startswith("attend") and n}
+    predicted = _launches(**corr, **AB.predicted_launches(records))
+    _check(moved == predicted and all(
+        moved[k] for k in ("conv3x3_fused", "conv3x3_fused_stats", *corr)),
+        f"match_kernel {match_kernel} small input launched {moved} == "
+        f"{predicted}, the routing's prediction, the correlation kernel and "
+        f"both dense conv kernels among them")
     for key in ("fake_image", "warp_out", "warp_mask"):
         err = _maxerr(got[key].cpu(), want[key])
         _check(err <= 5e-4, f"match_kernel {match_kernel} small-input slice "
@@ -983,8 +1084,7 @@ KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
     ("shift9_fwd.cu", ("shift9_fwd_kernel",)),
     ("shift9_bwd.cu", ("shift9_bwd_kernel",)),
     ("corr_fwd.cu", ("corr_fwd_kernel",)),
-    ("corr_bwd.cu", ("corr_bwd_kernel",)),
-    ("corr_bigc_bwd.cu", ("corr_bigc_bwd_kernel",)),
+    ("corr_bwd.cu", ("corr_bwd_scores_kernel", "corr_bwd_gemm_kernel")),
     ("conv3x3_dw.cu", ("conv3x3_dw_bf16_kernel", "conv3x3_dw_f32_kernel",
                        "reduce_splits")),
     ("library conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
@@ -993,6 +1093,21 @@ KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
     ("optimizer (Adam, EMA)", ("multi_tensor", "adam")),
     ("softmax / reductions", ("softmax", "reduce", "norm")),
 )
+
+
+# (source, ((substring of the kernel name, part), ...)): shift9_bwd.cu's
+# two passes (the owner side is the queries, or the keys); the correlation
+# backward's four launches (dv's tiles: 96 columns where D > 32, as at
+# match_kernel 1, else 32, as in bench_corr)
+BWD_PARTS = (
+    ("shift9_bwd.cu", (("shift9_bwd_kernel<true>", "query pass"),
+                       ("shift9_bwd_kernel<false>", "key pass"))),
+    ("corr_bwd.cu", (("corr_bwd_scores_kernel", "scores (P, dS)"),
+                     ("corr_bwd_gemm_kernel<true, 4>", "dq = dS k"),
+                     ("corr_bwd_gemm_kernel<false, 4>", "dk = dS^T q"),
+                     ("corr_bwd_gemm_kernel<false, 3>", "dv = P^T gO"),
+                     ("corr_bwd_gemm_kernel<false, 1>",
+                      "dv = P^T gO (32-column tiles)"))))
 
 
 def profile_call(fn) -> None:
@@ -1032,14 +1147,13 @@ def profile_call(fn) -> None:
     for key, (n, us) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
         print(f"  {key:24s} {n:5d} launches {us / 1e3:9.3f} ms "
               f"{us / total:6.1%}")
-    # the backward kernels' two passes (their template argument: the owner
-    # side is the queries, or the keys)
-    for src in ("shift9_bwd", "corr_bwd", "corr_bigc_bwd"):
-        for flag, what in (("<true>", "query pass"), ("<false>", "key pass")):
+    # the backward kernels' parts, by kernel name and template arguments
+    for src, parts in BWD_PARTS:
+        for key, what in parts:
             us = sum(e.time_range.elapsed_us() for e in kernels
-                     if f"{src}_kernel{flag}" in e.name)
+                     if key in e.name)
             if us:
-                print(f"    {src}.cu {what}: {us / 1e3:.3f} ms")
+                print(f"    {src} {what}: {us / 1e3:.3f} ms")
 
 
 def inference_opt(cfg, match_kernel):
@@ -1458,7 +1572,7 @@ def main() -> None:
                                 "cocosnet_tpu/ops/pallas_corr_bigc.py:98",
                                 "bench_corr"),
            "attend_corr_bigc_backward": (
-               "cocosnet_tpu_torch/csrc/corr_bigc_bwd.cu",
+               "cocosnet_tpu_torch/csrc/corr_bwd.cu",
                "cocosnet_tpu/ops/pallas_corr_bigc.py:194", "bench_corr")}
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
                     path=path, launches=runs[path][k], **rows[k])

@@ -8,17 +8,19 @@ exemplar's one-hot map. In train mode, given the real image, it also
 returns the domain-alignment loss `loss_novgg_featpair`
 (correspondence.py:149-153).
 
-The warp, by match_kernel:
+The warp, by match_kernel, as the JAX package routes it
+(correspondence.py:241-246, :313-319):
 - 3: the 3x3-unfold correlation, ops/shift9.attend_shift9 (its kernels
-  forward and backward, in inference and training);
+  forward and backward, in inference and training); with
+  `opt.use_pallas` False, the library route ops/corr_shift.attend_unfold;
 - 1: dense 256-dim descriptors, centered (over channels with PONO_C, over
   positions without) and L2-normalized in f32, then ops/corr.attend_corr
   (its kernels) in inference; in training the library route
   ops/correlation.attend, unless the environment sets
   COCOSNET_PALLAS_MK1_TRAIN=1 (read at each call), which puts training on
-  attend_corr's kernels forward and backward, as the JAX package routes
-  its Pallas kernel (correspondence.py:313-319).
-`opt.use_pallas` is not read: a CUDA tensor always takes the kernels.
+  attend_corr's kernels forward and backward; `opt.use_pallas` False
+  takes the library route in inference and training, whatever the
+  environment says.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from cocosnet_tpu_torch.models.generator import AdaptiveFeatureGenerator
 from cocosnet_tpu_torch.nn.blocks import ResidualBlock
 from cocosnet_tpu_torch.nn.layers import Conv2d, OneHotLabels
 from cocosnet_tpu_torch.ops.corr import attend_corr
+from cocosnet_tpu_torch.ops.corr_shift import attend_unfold
 from cocosnet_tpu_torch.ops.correlation import attend
 from cocosnet_tpu_torch.ops.image import (avg_pool, resize_nearest,
                                           upsample_nearest)
@@ -138,13 +141,17 @@ class CorrespondenceNet(tnn.Module):
         if opt.match_kernel == 1:
             theta = self._descriptor(y_theta)
             phi = self._descriptor(y_phi)
-            if self.training and os.environ.get(MK1_TRAIN_ENV) != "1":
-                row_out = attend(theta, phi, v, temperature)
-            else:
+            if opt.use_pallas and not (
+                    self.training and os.environ.get(MK1_TRAIN_ENV) != "1"):
                 row_out = attend_corr(theta, phi, v, temperature)
-        else:
+            else:
+                row_out = attend(theta, phi, v, temperature)
+        elif opt.use_pallas:
             row_out = attend_shift9(y_theta, y_phi, v, temperature,
                                     opt.PONO_C)
+        else:
+            row_out = attend_unfold(y_theta, y_phi, v, temperature,
+                                    opt.match_kernel, opt.PONO_C)
         y = row_out[..., :3].reshape(b, fh, fw, 3)
         out["warp_out"] = upsample_nearest(y, opt.down)
         if need_direct_mask:

@@ -16,6 +16,12 @@ to conv3x3_fused and its backward, COCOSNET_PALLAS_DW=1 or =all sends the
 3x3 convs of its gate to conv3x3_xla_pdw (library forward and dx, dW on
 csrc/conv3x3_dw.cu). The statistics and one-hot kernels stay inference
 only.
+
+Every gate reads the JAX package's switches at each call, where it reads
+them (pallas_conv.py:600, :664, :795): FUSED_ENV ("0" or "false" turns off
+the fused conv and the statistics conv), FUSED_STATS_ENV (the statistics
+conv) and ONEHOT_ENV (the one-hot conv). A switch that is off sends a CUDA
+tensor to the library route, the reference's own route; unset, each is on.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ from cocosnet_tpu_torch.ops.conv3x3 import (conv3x3_dw_supported,
 # "1" (or "true") lets training convs take conv3x3_fused where its gate
 # agrees; anything else keeps them off it
 FUSED_TRAIN_ENV = "COCOSNET_FUSED_CONV_TRAIN"
+# "0" or "false" turns a kernel off (default on), as in the JAX package
+FUSED_ENV = "COCOSNET_FUSED_CONV"
+FUSED_STATS_ENV = "COCOSNET_FUSED_CONV_STATS"
+ONEHOT_ENV = "COCOSNET_ONEHOT_CONV"
 
 # Compute-dtype policy for convolutions: None = f32; torch.bfloat16 runs
 # operands and outputs in bf16 with f32 accumulation inside the conv.
@@ -105,9 +115,10 @@ def _base_supported(x_shape, kernel_shape, *, stride: int,
                     padding: int) -> bool:
     """pallas_conv._base_supported less its TPU-only conditions (the TPU
     check and the VMEM tile search of both orientations, which have no H100
-    meaning): 3x3, stride 1, padding 1 (a reflect ring counts as padding
-    1), and its size conditions. Its COCOSNET_FUSED_CONV switch is not read:
-    its default, on, holds."""
+    meaning): FUSED_ENV not off, 3x3, stride 1, padding 1 (a reflect ring
+    counts as padding 1), and its size conditions."""
+    if os.environ.get(FUSED_ENV, "1") in ("0", "false"):
+        return False
     if len(x_shape) != 4 or tuple(kernel_shape[:2]) != (3, 3):
         return False
     if stride != 1 or padding != 1:
@@ -139,11 +150,28 @@ def conv3x3_supported(x_shape, kernel_shape, *, stride: int,
 def conv3x3_stats_supported(x_shape, kernel_shape, *, stride: int,
                             padding: int) -> bool:
     """The gate of conv3x3_fused_stats (pallas_conv.conv3x3_stats_
-    supported): inference only (no backward), the base conditions, the
-    heavy pad-ratio shapes included. Its COCOSNET_FUSED_CONV_STATS switch
-    is not read: its default, on, holds."""
-    return not _IN_TRAINING and _base_supported(
-        x_shape, kernel_shape, stride=stride, padding=padding)
+    supported): inference only (no backward), FUSED_STATS_ENV not off, the
+    base conditions, the heavy pad-ratio shapes included."""
+    if _IN_TRAINING or os.environ.get(FUSED_STATS_ENV, "1") in ("0",
+                                                                 "false"):
+        return False
+    return _base_supported(x_shape, kernel_shape, stride=stride,
+                           padding=padding)
+
+
+def conv3x3_onehot_supported(lab_shape, n_classes: int, cout: int) -> bool:
+    """The gate of conv3x3_onehot (pallas_conv.conv3x3_onehot_supported)
+    less its TPU-only conditions (the TPU check and the VMEM tile search):
+    ONEHOT_ENV not off, inference only (no backward), a (B, H, W) label
+    map with W % 128 == 0, H >= 8, H W >= 2048, and Cout >= 64. Any class
+    count: the kernel gathers weight rows by label."""
+    del n_classes
+    if os.environ.get(ONEHOT_ENV, "1") in ("0", "false"):
+        return False
+    if _IN_TRAINING or len(lab_shape) != 3:
+        return False
+    _, h, w = lab_shape
+    return w % 128 == 0 and h >= 8 and h * w >= 2048 and cout >= 64
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -165,12 +193,12 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
 
     Routing, in the JAX package's order (cocosnet_tpu/nn/layers.py:
     129-203): a OneHotLabels input of a 3x3 stride-1 zero-padded conv goes
-    to conv3x3_onehot outside `training()`, else it is densified; a stats
-    request to conv3x3_fused_stats where `conv3x3_stats_supported`, else to
-    the conv below and torch moments; then conv3x3_fused where
-    `conv3x3_supported`; inside `training()`, a 3x3 stride-1 conv (reflect
-    or padding 1) of the dW gate to conv3x3_xla_pdw; everything else to
-    F.conv2d."""
+    to conv3x3_onehot where `conv3x3_onehot_supported`, else it is
+    densified; a stats request to conv3x3_fused_stats where
+    `conv3x3_stats_supported`, else to the conv below and torch moments;
+    then conv3x3_fused where `conv3x3_supported`; inside `training()`, a
+    3x3 stride-1 conv (reflect or padding 1) of the dW gate to
+    conv3x3_xla_pdw; everything else to F.conv2d."""
     weight = kernel
     if _COMPUTE_DTYPE is not None:
         x = x.to(_COMPUTE_DTYPE)
@@ -178,8 +206,10 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
     if reflect and (padding != 0 or stride != 1):
         raise ValueError("a reflect ring takes padding=0 and stride=1")
     if isinstance(x, OneHotLabels):
-        if (not _IN_TRAINING and tuple(kernel.shape[:2]) == (3, 3)
-                and stride == 1 and padding == 1 and not reflect):
+        if (tuple(kernel.shape[:2]) == (3, 3) and stride == 1
+                and padding == 1 and not reflect
+                and conv3x3_onehot_supported(x.labels.shape, x.n_classes,
+                                             kernel.shape[3])):
             return conv3x3_onehot(x.labels, kernel, bias, dtype=x.dtype,
                                   want_stats=want_stats)
         return conv2d(x.dense(), weight, bias, stride=stride,

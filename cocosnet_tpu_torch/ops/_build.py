@@ -25,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 SOURCES = ("shift9_fwd", "shift9_bwd", "conv3x3", "conv3x3_onehot",
-           "corr_fwd", "corr_bwd", "conv3x3_dw", "corr_bigc_bwd")
+           "corr_fwd", "corr_bwd", "conv3x3_dw")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -55,16 +55,12 @@ SIGNATURES = {
         "cocosnet_corr_max_d": [],
     },
     "corr_bwd": {
-        "cocosnet_corr_bwd": [_P] * 9 + [_I] * 5 + [_F, _P],
-        "cocosnet_corr_bwd_smem": [_I, _I],
+        "cocosnet_corr_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
+        "cocosnet_corr_bwd_tile": [],
     },
     "conv3x3_dw": {
         "cocosnet_conv3x3_dw": [_P] * 7 + [_I] * 8 + [_P],
         "cocosnet_conv3x3_dw_splits": [_I] * 6,
-    },
-    "corr_bigc_bwd": {
-        "cocosnet_corr_bigc_bwd": [_P] * 9 + [_I] * 5 + [_F, _P],
-        "cocosnet_corr_bigc_bwd_smem": [_I],
     },
 }
 

@@ -6,7 +6,9 @@ Counterpart of cocosnet_tpu/ops/pallas_corr.py `attend_pallas`. The core
 is a torch.autograd.Function: its forward runs the hand-written CUDA kernel
 csrc/corr_fwd.cu on a CUDA tensor, or its plain PyTorch version
 (`corr_fwd_plain`) on a CPU tensor, and saves the row logsumexp; its
-backward forms dd = rowsum(gO * O) and runs csrc/corr_bwd.cu, or
+backward forms dd = rowsum(gO * O) and runs csrc/corr_bwd.cu (P and dS
+formed once into scratch, then dq, dk and dv, all on the tensor cores in
+3xTF32; the same kernels serve ops/corr_bigc at C = 2304), or
 `corr_bwd_plain` on the CPU. Both kernels take any N and M (the Pallas
 kernel writes only whole 128-row query blocks and reads only whole key
 chunks). V rides as (B, M, D): the Pallas kernel's transposed layout is a
@@ -18,9 +20,6 @@ from __future__ import annotations
 import torch
 
 from cocosnet_tpu_torch.ops import _build
-
-# shared memory a block may opt into on Hopper (232,448 bytes)
-_MAX_SMEM = 232448
 
 
 def _logits(q, k, tau):
@@ -79,26 +78,40 @@ def corr_fwd_kernel(q, k, v, tau: float):
     return o, lse
 
 
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """t with its last dimension zero-padded to a multiple of 4 and its
+    start 16-byte aligned (a copy only where needed): rows the kernels can
+    load with 16-byte copies."""
+    pad = -t.shape[-1] % 4
+    if pad:
+        return torch.nn.functional.pad(t, (0, pad))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def corr_bwd_kernel(q, k, v, tau: float, lse, go, dd):
-    """Launches csrc/corr_bwd.cu (its query pass, then its key pass): the
-    outputs of corr_bwd_plain."""
+    """Launches csrc/corr_bwd.cu (scores, then dq, dk and dv on the tensor
+    cores) with its P and dS scratch: the outputs of corr_bwd_plain."""
     lib = _build.library("corr_bwd")
     b, n, c = q.shape
     m, d = v.shape[1], v.shape[2]
-    smem = lib.cocosnet_corr_bwd_smem(c, d)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"corr backward kernel takes a C x D that fits "
-                         f"shared memory; got C={c}, D={d} ({smem} bytes)")
-    _check("corr backward kernel", (q, (b, n, c)), (k, (b, m, c)),
+    _check("corr_bwd kernel", (q, (b, n, c)), (k, (b, m, c)),
            (v, (b, m, d)), (lse, (b, n)), (go, (b, n, d)), (dd, (b, n)))
+    if b > 65535:
+        raise ValueError(f"corr_bwd kernel takes B <= 65535 (its grid's "
+                         f"third dimension); got B={b}")
+    tile = lib.cocosnet_corr_bwd_tile()
+    npad, mpad = -(-n // tile) * tile, -(-m // tile) * tile
+    ops = [_rows16(t) for t in (q, k, v, go)]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    p = torch.empty((b, npad, mpad), dtype=torch.float32, device=q.device)
+    ds = torch.empty_like(p)
     with torch.cuda.device(q.device):
         err = lib.cocosnet_corr_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(),
-            lse.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, n, m, c, d, 1.0 / tau,
+            *(t.data_ptr() for t in ops), lse.data_ptr(), dd.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), p.data_ptr(),
+            ds.data_ptr(), b, n, m, c, d, 1.0 / tau,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "corr_bwd")
     return dq, dk, dv

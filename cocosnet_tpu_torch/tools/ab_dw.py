@@ -85,8 +85,9 @@ def predicted_launches(records) -> collections.Counter:
         k3s1 = tuple(ks[:2]) == (3, 3) and r["stride"] == 1
         ctx = L.training() if r["training"] else contextlib.nullcontext()
         with ctx:
-            if r["onehot"] and not r["training"] and k3s1 \
-                    and r["padding"] == 1 and not r["reflect"]:
+            if r["onehot"] and k3s1 and r["padding"] == 1 \
+                    and not r["reflect"] and L.conv3x3_onehot_supported(
+                        xs[:3], xs[3], ks[3]):
                 n["conv3x3_onehot"] += 1
                 continue
             gate = dict(stride=r["stride"],

@@ -5,7 +5,7 @@ match_kernel 3 -> 2304-dim descriptors, PONO_C centered):
   - attend_chunked     the library route over the 2304-dim descriptors
                        (ops/correlation)
   - attend_corr_bigc   the flash kernels for large descriptors
-                       (ops/corr_bigc: corr_fwd.cu, corr_bigc_bwd.cu)
+                       (ops/corr_bigc: corr_fwd.cu, corr_bwd.cu)
   - attend_unfold      the 9-shift decomposition (ops/corr_shift)
   - attend_shift9      the fused shift9 kernels (ops/shift9)
 

@@ -256,6 +256,108 @@ def test_gates_agree_with_jax(monkeypatch, fused_train, dw):
             assert got == want, (training, xs, ks, kw, got, want)
 
 
+# (label map shape, classes, Cout): the flagship's seg adaptor conv, and
+# each size condition of the one-hot gate just met and just missed
+ONEHOT_SHAPES = [
+    ((6, 256, 256), 151, 64), ((1, 128, 256), 13, 16), ((2, 64, 64), 13, 8),
+    ((1, 16, 128), 12, 64), ((1, 8, 128), 12, 64), ((1, 4, 512), 12, 64),
+    ((1, 8, 256), 151, 64), ((2, 512, 512), 151, 64), ((1, 16, 128), 12, 63),
+    ((1, 16, 192), 12, 64), ((1, 16, 384), 200, 256), ((1, 16, 128, 1), 12,
+                                                       64),
+]
+
+
+def test_onehot_shapes_are_vmem_feasible():
+    """Every listed shape that passes the one-hot gate's size conditions is
+    one the TPU's tile search (pallas_conv._pick_tiles_onehot) takes, so the
+    JAX gate can be compared on all of them."""
+    for lab, nc, co in ONEHOT_SHAPES:
+        if len(lab) == 3 and lab[2] % 128 == 0 and lab[1] >= 8 \
+                and lab[1] * lab[2] >= 2048 and co >= 64:
+            assert PC._pick_tiles_onehot(
+                lab[1], lab[2], PC._round_up(nc, 128), PC._round_up(co, 128),
+                2) is not None, (lab, nc, co)
+
+
+@pytest.mark.parametrize("onehot_env", [None, "1", "0", "false"])
+def test_onehot_gate_agrees_with_jax(monkeypatch, onehot_env):
+    """conv3x3_onehot_supported of the port against the JAX package's, with
+    its TPU check patched to True, on every listed shape, inside and
+    outside training, under each setting of COCOSNET_ONEHOT_CONV."""
+    monkeypatch.setattr(PC, "_is_tpu", lambda: True)
+    if onehot_env is None:
+        monkeypatch.delenv(TL.ONEHOT_ENV, raising=False)
+    else:
+        monkeypatch.setenv(TL.ONEHOT_ENV, onehot_env)
+    taken = 0
+    for training in (False, True):
+        for lab, nc, co in ONEHOT_SHAPES:
+            with (PC.training_trace() if training else nullcontext()):
+                want = PC.conv3x3_onehot_supported(lab, nc, co)
+            with (TL.training() if training else nullcontext()):
+                got = TL.conv3x3_onehot_supported(lab, nc, co)
+            assert got == want, (training, lab, nc, co, got, want)
+            taken += got
+    assert taken == (0 if onehot_env in ("0", "false") else 5)
+
+
+# (switch, value, plain calls of the three inference convs below)
+SWITCHES = [
+    (None, None, {"conv3x3_onehot": 1, "conv3x3_fused_stats": 1,
+                  "conv3x3_fused": 1}),
+    ("FUSED_ENV", "0", {"conv3x3_onehot": 1}),
+    ("FUSED_ENV", "false", {"conv3x3_onehot": 1}),
+    ("FUSED_ENV", "1", {"conv3x3_onehot": 1, "conv3x3_fused_stats": 1,
+                        "conv3x3_fused": 1}),
+    # the stats request takes the conv below it: the fused kernel
+    ("FUSED_STATS_ENV", "0", {"conv3x3_onehot": 1, "conv3x3_fused": 2}),
+    # the labels densify: 12 input channels take the library conv
+    ("ONEHOT_ENV", "false", {"conv3x3_fused_stats": 1, "conv3x3_fused": 1}),
+]
+
+
+@pytest.mark.parametrize("switch,value,expected", SWITCHES)
+def test_inference_switches_route_to_the_library(monkeypatch, switch, value,
+                                                 expected):
+    """Outside training, one conv of each inference kernel (the one-hot conv
+    of a 16 x 128 label map, a statistics conv and a reflect-ring conv at
+    64 channels) under each setting of the JAX package's switches: the
+    plain calls of each entry are what the routing predicts (a switch that
+    is off leaves its kernel at 0) and the outputs match the JAX package's
+    nn.layers.conv2d under the same switch (XLA convs on the CPU)."""
+    from cocosnet_tpu.nn import layers as JL
+    for name in ("FUSED_ENV", "FUSED_STATS_ENV", "ONEHOT_ENV"):
+        monkeypatch.delenv(getattr(TL, name), raising=False)
+    if switch is not None:
+        monkeypatch.setenv(getattr(TL, switch), value)
+    rs = np.random.RandomState(9)
+    labels = rs.randint(0, 12, (1, 16, 128)).astype(np.int32)
+    x = rs.randn(1, 32, 64, 64).astype(np.float32)
+    k1 = (rs.randn(3, 3, 12, 64) * 0.2).astype(np.float32)
+    k2 = (rs.randn(3, 3, 64, 64) * 0.05).astype(np.float32)
+    bias = rs.randn(64).astype(np.float32)
+    cases = [
+        (lambda m, t: m.OneHotLabels(t, 12), labels, k1,
+         dict(padding=1, want_stats=True)),
+        (lambda m, t: t, x, k2, dict(padding=1, want_stats=True)),
+        (lambda m, t: t, x, k2, dict(reflect=True)),
+    ]
+    before = {n: getattr(C, n).plain_calls for n in COUNTED}
+    got, want = [], []
+    for wrap, inp, k, kw in cases:
+        got.append(TL.conv2d(wrap(TL, torch.from_numpy(inp)),
+                             torch.from_numpy(k), torch.from_numpy(bias),
+                             **kw))
+        want.append(JL.conv2d(wrap(JL, jnp.asarray(inp)), jnp.asarray(k),
+                              jnp.asarray(bias), **kw))
+    moved = {n: getattr(C, n).plain_calls - before[n] for n in COUNTED}
+    assert {n: v for n, v in moved.items() if v} == expected
+    for g, w in zip(got, want):
+        for a, r in zip(g if isinstance(g, tuple) else (g,),
+                        w if isinstance(w, tuple) else (w,)):
+            _close(a.numpy(), np.asarray(r), 1e-5)
+
+
 # ---------------------------------------------------------------- routing
 
 # (name, x shape, cout, conv2d keywords): shapes of the gates' sizes, small

@@ -171,10 +171,12 @@ def _unit(t):
                                    (3, 257, 65, 256, 256)])
 def test_corr_kernels_match_plain(gen, shape):
     """corr_fwd.cu and corr_bwd.cu against their plain versions on the same
-    inputs (B, N, M, C, D), with partial query and key tiles and N != M:
-    o within 2e-5 (outputs are convex combinations of v ~ N(0, 1), 1/tau =
-    100 in the logits), lse within 1e-4, and each gradient within 1e-4 of
-    its largest magnitude (f32 sums over N or M in another order)."""
+    inputs (B, N, M, C, D), with partial query and key tiles, N != M, and C
+    and D not multiples of 4 (the wrapper's zero-padded copies): o within
+    2e-5 (outputs are convex combinations of v ~ N(0, 1), 1/tau = 100 in
+    the logits), lse within 1e-4, and each gradient within 1e-4 of its
+    largest magnitude (3xTF32 products, sums over N or M in another order);
+    the backward gives the same bits twice."""
     b, n, m, c, d = shape
     q, k = _unit(_r(gen, b, n, c)), _unit(_r(gen, b, m, c))
     v, go = _r(gen, b, m, d), _r(gen, b, n, d)
@@ -188,6 +190,8 @@ def test_corr_kernels_match_plain(gen, shape):
     for name, a, r in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(a, r, rtol=0,
                                    atol=1e-4 * float(r.abs().max()), msg=name)
+    again = K.corr_bwd_kernel(*args)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
 
 
 def test_corr_autograd_runs_the_kernels(gen):
@@ -218,9 +222,12 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
     q = _r(gen, 1, 40, 8)
     with pytest.raises(ValueError, match="D <= 256"):
         K.attend_corr(q, q, _r(gen, 1, 40, 300), 0.01)
-    with pytest.raises(ValueError, match="shared memory"):
-        K.corr_bwd_kernel(_r(gen, 1, 40, 2304), _r(gen, 1, 40, 2304),
-                          q, 0.01, q[..., 0], q, q[..., 0])
+    # the backward kernels' grid holds B in its third dimension
+    qb = _r(gen, 65536, 1, 4)
+    lb = qb[..., 0].contiguous()
+    for fn in (K.corr_bwd_kernel, KB.corr_bigc_bwd_kernel):
+        with pytest.raises(ValueError, match="B <= 65535"):
+            fn(qb, qb, qb, 0.01, lb, qb, lb)
     x = _r(gen, 1, 8, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         C.conv3x3_fused(x, _r(gen, 3, 3, 64, 64, dtype=torch.float16))
@@ -367,7 +374,7 @@ def test_dw_splits_fill_two_waves(gen):
 @pytest.mark.parametrize("shape", [(1, 200, 300, 2304, 3), (2, 64, 90, 256, 7),
                                    (1, 33, 70, 1000, 40)])
 def test_bigc_kernels_match_plain(gen, shape):
-    """The large-descriptor path: corr_fwd.cu and corr_bigc_bwd.cu against
+    """The large-descriptor path: corr_fwd.cu and corr_bwd.cu against
     the plain versions (B, N, M, C, D), N != M: o within 2e-5, lse within
     1e-4, each gradient within 1e-4 of its largest magnitude; the backward
     gives the same bits twice."""

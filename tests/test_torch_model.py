@@ -31,6 +31,7 @@ from cocosnet_tpu.nn.layers import OneHotLabels as JOneHot
 from cocosnet_tpu_torch import config as TCFG
 from cocosnet_tpu_torch import pix2pix as TP
 from cocosnet_tpu_torch.convert import load_flax_variables
+from cocosnet_tpu_torch.models import correspondence as TCR
 from cocosnet_tpu_torch.models.generator import (
     AdaptiveFeatureGenerator as TAdaptive)
 from cocosnet_tpu_torch.nn import blocks as TB
@@ -153,13 +154,14 @@ def test_slice_matches_jax(flagship_small, key):
 
 
 def test_slice_plain_counters(flagship_small):
-    """One forward at crop 64 / ngf 8: the one-hot conv and shift9 run once
-    each. No dense 3x3 conv here meets the fused entries' size gate (c and
-    cout >= 64 with h*w >= 2048), so those two stay at 0 on this shape; the
-    wide case below moves them."""
+    """One forward at crop 64 / ngf 8: shift9 runs once. No conv here meets
+    the kernels' size gates: the one-hot conv's needs W % 128 == 0 and Cout
+    >= 64 (pallas_conv.conv3x3_onehot_supported), the dense entries' c and
+    cout >= 64 with h*w >= 2048, so the labels are densified and every conv
+    takes the library; the wide case below moves the dense entries."""
     *_, calls = flagship_small
     assert calls == {"conv3x3_fused": 0, "conv3x3_fused_stats": 0,
-                     "conv3x3_onehot": 1, "attend_shift9": 1,
+                     "conv3x3_onehot": 0, "attend_shift9": 1,
                      "attend_corr": 0}
 
 
@@ -167,13 +169,15 @@ def test_wide_slice_moves_every_counter():
     """A 128 x 256 batch at ngf 16 puts 32 x 64 feature maps (2048
     positions, the width the shift9 kernel tiles) with >= 64 channels
     through the residual stack, the adaptors' last layers and the
-    generator's top blocks, so all four entries run their plain versions;
-    the outputs still match the JAX package."""
+    generator's top blocks, so the dense entries and shift9 run their plain
+    versions; the one-hot conv's Cout = ngf = 16 < 64 keeps it off its
+    kernel, as the JAX gate does; the outputs still match the JAX
+    package."""
     kw = dict(FLAGSHIP_SMALL, crop_size=256, load_size=256, aspect_ratio=2.0,
               ngf=16, batchSize=1)
     jout, tout, calls = _run_both(kw, 1, 128, 256)
     assert calls == {"conv3x3_fused": 52, "conv3x3_fused_stats": 18,
-                     "conv3x3_onehot": 1, "attend_shift9": 1,
+                     "conv3x3_onehot": 0, "attend_shift9": 1,
                      "attend_corr": 0}
     for key in ("fake_image", "warp_out", "warp_mask"):
         np.testing.assert_allclose(tout[key], jout[key], atol=5e-4)
@@ -202,11 +206,31 @@ def test_mk1_slice_matches_jax(mk1_small, key):
 
 
 def test_mk1_slice_plain_counters(mk1_small):
-    """An mk1 forward runs attend_corr once and shift9 never."""
+    """An mk1 forward runs attend_corr once and shift9 never (and, at crop
+    64, no conv kernel)."""
     *_, calls = mk1_small
     assert calls == {"conv3x3_fused": 0, "conv3x3_fused_stats": 0,
-                     "conv3x3_onehot": 1, "attend_shift9": 0,
+                     "conv3x3_onehot": 0, "attend_shift9": 0,
                      "attend_corr": 1}
+
+
+@pytest.mark.parametrize("match_kernel", [3, 1])
+def test_use_pallas_false_takes_the_library_route(monkeypatch, match_kernel):
+    """opt.use_pallas False (the JAX package's switch, correspondence.py:
+    241, :314) sends the warp to the library route, attend_unfold at
+    match_kernel 3 and attend at 1: neither correlation kernel runs, and
+    the slice still matches the JAX package with the same switch."""
+    ran = []
+    for name in ("attend_unfold", "attend"):
+        fn = getattr(TCR, name)
+        monkeypatch.setattr(TCR, name, lambda *a, _fn=fn, _name=name, **k: (
+            ran.append(_name), _fn(*a, **k))[1])
+    jout, tout, calls = _run_both(dict(FLAGSHIP_SMALL, use_pallas=False,
+                                       match_kernel=match_kernel), 2, 64, 64)
+    assert ran == ["attend_unfold" if match_kernel == 3 else "attend"]
+    assert calls["attend_shift9"] == calls["attend_corr"] == 0
+    for key in ("fake_image", "warp_out", "warp_mask"):
+        np.testing.assert_allclose(tout[key], jout[key], atol=5e-4)
 
 
 # ------------------------------------------------------------------ blocks

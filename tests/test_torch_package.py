@@ -43,19 +43,20 @@ def test_port_imports_no_jax_and_nothing_of_cocosnet_tpu(path):
     with open(path) as f:
         text = f.read()
     # no dynamic import of them either, and no environment switch but the
-    # JAX package's training switches (test_env_switches_are_the_jax_
+    # JAX package's kernel switches (test_env_switches_are_the_jax_
     # package's), each named by its constant
     assert not re.search(r"import_module\(\s*['\"](jax|cocosnet_tpu\b)",
                          text)
     for m in re.finditer(r"\bos\.(environ|getenv)\b(.{0,24})", text):
-        assert re.search(r"\b(MK1_TRAIN|DW|FUSED_TRAIN)_ENV\b",
+        assert re.search(r"\b(MK1_TRAIN|DW|FUSED_TRAIN|FUSED|FUSED_STATS|"
+                         r"ONEHOT)_ENV\b",
                          m.group(2)), (path, m.group(0))
 
 
 def test_env_switches_are_the_jax_packages():
     """The port reads the environment switches the JAX package reads to
-    route training (pallas_conv.py:521, :635; correspondence.py:313), by
-    the same names."""
+    route its kernels (pallas_conv.py:521, :600, :635, :664, :795;
+    correspondence.py:313), by the same names."""
     from cocosnet_tpu_torch.models import correspondence as TCR
     from cocosnet_tpu_torch.nn import layers as TL
     from cocosnet_tpu_torch.ops import conv3x3 as C
@@ -66,6 +67,8 @@ def test_env_switches_are_the_jax_packages():
                            "correspondence.py")) as f:
         corr_src = f.read()
     for name, src in ((C.DW_ENV, conv_src), (TL.FUSED_TRAIN_ENV, conv_src),
+                      (TL.FUSED_ENV, conv_src), (TL.FUSED_STATS_ENV, conv_src),
+                      (TL.ONEHOT_ENV, conv_src),
                       (TCR.MK1_TRAIN_ENV, corr_src)):
         assert f'"{name}"' in src, name
 

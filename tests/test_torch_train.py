@@ -58,7 +58,7 @@ OPT = dict(dataset_mode="ade20k", label_nc=5, contain_dontcare_label=True,
            crop_size=64, load_size=64, batchSize=2, ngf=8, ndf=8,
            PONO=True, PONO_C=True, vgg_normal_correct=True,
            use_attention=True, maskmix=True, warp_mask_losstype="direct",
-           weight_mask=100.0, use_ema=True, use_pallas=False, isTrain=True)
+           weight_mask=100.0, use_ema=True, isTrain=True)
 B, H = 2, 64
 
 

@@ -4,9 +4,11 @@ the CPU at f32, on both of the port's routes for the correlation:
   autograd), as the JAX package trains match_kernel=1 through XLA;
 - "kernels": COCOSNET_PALLAS_MK1_TRAIN=1, ops/corr.attend_corr forward and
   backward (their plain versions on the CPU), as the JAX package's switch
-  of the same name puts training on its Pallas kernel.
+  of the same name puts training on its Pallas kernel;
+- "use_pallas off": COCOSNET_PALLAS_MK1_TRAIN=1 with opt.use_pallas False,
+  which overrides it (correspondence.py:314-319): the library route again.
 The JAX side takes its XLA attend on the CPU either way (its Pallas gate
-needs a TPU), so one JAX run serves both.
+needs a TPU), so one JAX run serves all three.
 
 The flags, size, weights and batch are tests/test_torch_train.py's
 (flagship flags, crop 64, ngf 8 / ndf 8, label_nc 5, batch 2), with
@@ -39,7 +41,7 @@ from test_torch_train import (LOSS_KEYS, OPT, _batch, _jnp, _spectral,
 from test_torch_threads import torch_threads  # noqa: F401
 
 MK1 = dict(OPT, match_kernel=1)
-ROUTES = ("library", "kernels")
+ROUTES = ("library", "kernels", "use_pallas off")
 COUNTED = (K.attend_corr, K.attend_corr_backward, S.attend_shift9,
            S.attend_shift9_backward)
 
@@ -66,11 +68,12 @@ def runs():
     mp = pytest.MonkeyPatch()
     try:
         for route in ROUTES:
-            if route == "kernels":
-                mp.setenv(TCR.MK1_TRAIN_ENV, "1")
-            else:
+            if route == "library":
                 mp.delenv(TCR.MK1_TRAIN_ENV, raising=False)
-            topt = TCFG.test_defaults(**MK1)
+            else:
+                mp.setenv(TCR.MK1_TRAIN_ENV, "1")
+            topt = TCFG.test_defaults(**dict(
+                MK1, use_pallas=route != "use_pallas off"))
             tnets = TP.Pix2PixNets(topt, device="cpu")
             for name in ("gen", "corr", "disc", "vgg"):
                 load_flax_variables(getattr(tnets, name), variables[name])
@@ -121,10 +124,12 @@ def test_mk1_train_step_spectral_state_matches_jax(runs, route, net):
 
 @pytest.mark.parametrize("route,want", [
     ("library", {"attend_corr": 0, "attend_corr_backward": 0}),
-    ("kernels", {"attend_corr": 2, "attend_corr_backward": 2})])
+    ("kernels", {"attend_corr": 2, "attend_corr_backward": 2}),
+    ("use_pallas off", {"attend_corr": 0, "attend_corr_backward": 0})])
 def test_mk1_train_route(runs, route, want):
     """Two steps: the library route leaves attend_corr alone; the kernel
-    route runs its forward and backward once per step. Neither runs
+    route runs its forward and backward once per step; use_pallas False
+    keeps the library route under COCOSNET_PALLAS_MK1_TRAIN=1. None runs
     shift9."""
     *_, calls = runs[route]
     assert calls == dict(want, attend_shift9=0, attend_shift9_backward=0)
