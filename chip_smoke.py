@@ -55,8 +55,10 @@ F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
 TF32_FLOP_S = 495e12
 # tensor-core passes per product of a split-precision product: 3xTF32 (what
-# the correlation backward kernel, csrc/corr_bwd.cu, issues) or bf16x3 (the
-# cheapest split that holds BWD_REL_TOL, tests/test_torch_corr_split.py)
+# the correlation kernels issue, csrc/tc_split.cuh) or bf16x3 (the split of
+# the TPU kernels, pallas_shift9._dot3 and pallas_corr._dot, and the
+# cheapest that holds the dense correlation's tolerances,
+# tests/test_torch_corr_split.py)
 SPLIT_PASSES = 3
 TIMED_RUNS = 25
 
@@ -223,18 +225,21 @@ def check_shift9(S, g, *, pono_c):
     n = h * w
     flops = 2.0 * b * n * n * (3 * c + d)
     nb = _nbytes(f3, g3, v, qv, kv) + b * n * (d + 1) * 4
-    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     del f3, g3, qv, kv
     torch.cuda.empty_cache()
     lib = shift9_yardstick(f, gg, v, pono_c, o)
     print(f"     shift9 pono_c={pono_c}: kernel {ms:.3f} ms (with the "
           f"torch prep {wrapper_ms:.3f} ms), plain {plain_ms:.3f} ms, "
           f"{lib['library']} {lib['library_ms']:.3f} ms (+ descriptors "
-          f"{lib['prep_ms']:.3f} ms), bound {bms:.3f} ms ({by}, "
-          f"{flops / 1e9:.1f} GFLOP)", flush=True)
+          f"{lib['prep_ms']:.3f} ms), bound {bms:.3f} ms ({by}: "
+          f"{flops / 1e9:.1f} GFLOP x {SPLIT_PASSES} bf16 passes; 3xTF32 "
+          f"{tf32_ms:.3f} ms; f32 FMA {fma_ms:.3f} ms, the rate this kernel "
+          f"multiplies at)", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib["library_ms"],
-                library=lib["library"])
+                library=lib["library"], tf32x3_bound_ms=tf32_ms,
+                fma_bound_ms=fma_ms)
 
 
 def shift9_yardstick(f, gg, v, pono_c, o, go=None) -> dict:
@@ -322,27 +327,34 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
            + f" <= {BWD_REL_TOL:g} (f32 sums reordered, 1/tau in the logits)")
     if not timed:
         return None
+    again = S.shift9_bwd_kernel(*args)
+    _check(all(torch.equal(a, r) for a, r in zip(got, again)),
+           f"{label} backward: two launches give the same bits")
+    del again
     ms = time_ms(lambda: S.shift9_bwd_kernel(*args), runs=5)
     plain_ms = time_ms(lambda: S.shift9_bwd_plain(*args), runs=3)
     torch.cuda.empty_cache()
     lib = shift9_yardstick(f, gg, v, pono_c, o, go)
     c3 = 3 * c
     # the function needs S3 = F3 G3^T and dP = gO V^T once each, then dF3 =
-    # dS3 G3, dG3 = dS3^T F3 and dV = P^T gO: 2 B N^2 (3 3C + 2 D). The
-    # two-pass design recomputes S3 and dP in its second pass, 2 B N^2
-    # (4 3C + 3 D); that count is printed beside the bound, not used for it
+    # dS3 G3, dG3 = dS3^T F3 and dV = P^T gO: 2 B N^2 (3 3C + 2 D), each as 3
+    # split passes for the bound; the tiles' padded count is printed beside
     flops = 2.0 * b * n * n * (3 * c3 + 2 * d)
-    design_flops = 2.0 * b * n * n * (4 * c3 + 3 * d)
+    issued = _shift9_bwd_issued(b, n, c3, d)
     nb = _nbytes(f3, g3, v, qv, kv, lse, go, dd, *got)
-    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     shift9 backward pono_c={pono_c}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, {lib['library']} {lib['library_ms']:.3f} ms "
           f"(+ descriptors {lib['prep_ms']:.3f} ms), bound {bms:.3f} ms "
-          f"({by}, {flops / 1e9:.1f} GFLOP; the two-pass design does "
-          f"{design_flops / 1e9:.1f})", flush=True)
+          f"({by}: {flops / 1e9:.1f} GFLOP x {SPLIT_PASSES} bf16 passes; "
+          f"3xTF32 {tf32_ms:.3f} ms; f32 FMA {fma_ms:.3f} ms); the tiles "
+          f"issue {issued / 1e9:.1f} GFLOP per pass, "
+          f"{SPLIT_PASSES * issued / ms / 1e9:.1f} TFLOP/s of TF32",
+          flush=True)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib["library_ms"],
-                library=lib["library"])
+                library=lib["library"], tf32x3_bound_ms=tf32_ms,
+                fma_bound_ms=fma_ms)
 
 
 def corr_inputs(g, b, n, m, c=256, d=154):
@@ -406,27 +418,58 @@ def check_corr(Kc, g, *, b, n, timed):
     backend = sdpa_backend(lib)
     torch.cuda.empty_cache()
     flops = 2.0 * b * n * n * (256 + 154)
+    issued = _corr_fwd_issued(b, n, n, 256, 154)
     nb = _nbytes(q, k, v, o, lse)
-    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     corr forward B{b} N=M={n}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, SDPA f32 ({backend}) {library_ms:.3f} ms, "
-          f"bound {bms:.3f} ms ({by}, {flops / 1e9:.2f} GFLOP)", flush=True)
+          f"bound {bms:.3f} ms ({by}: {flops / 1e9:.2f} GFLOP x "
+          f"{SPLIT_PASSES} bf16 passes; 3xTF32 {tf32_ms:.3f} ms; f32 FMA "
+          f"{fma_ms:.3f} ms); the tiles issue {issued / 1e9:.1f} GFLOP per "
+          f"pass, {SPLIT_PASSES * issued / ms / 1e9:.1f} TFLOP/s of TF32",
+          flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms,
-                library=f"F.scaled_dot_product_attention f32, {backend}")
+                library=f"F.scaled_dot_product_attention f32, {backend}",
+                tf32x3_bound_ms=tf32_ms, fma_bound_ms=fma_ms)
 
 
 def tc_bound(nb: int, flops: float):
     """(least time in ms, what bounds it, the 3xTF32 bound in ms, the
-    f32-FMA bound in ms) of the correlation backward's `flops`: the least
-    time is that of the cheapest split that holds BWD_REL_TOL, bf16x3
-    (SPLIT_PASSES tensor-core passes at the bf16 rate); beside it the split
-    the kernel issues, 3xTF32 (as many passes at the TF32 rate), and the
-    same flops at the f32 FMA rate, the bound of a design without tensor
+    f32-FMA bound in ms) of a correlation kernel's `flops`: the least time
+    is that of the split the TPU kernels multiply in, bf16x3 (SPLIT_PASSES
+    tensor-core passes at the bf16 rate); beside it the split the CUDA
+    kernels issue, 3xTF32 (as many passes at the TF32 rate), and the same
+    flops at the f32 FMA rate, the bound of a design without tensor
     cores."""
     bms, by = bound_ms(nb, SPLIT_PASSES * flops, BF16_FLOP_S)
     return (bms, by, bound_ms(nb, SPLIT_PASSES * flops, TF32_FLOP_S)[0],
             bound_ms(nb, flops, F32_FLOP_S)[0])
+
+
+def _up(x, t):
+    return -(-x // t) * t
+
+
+def _shift9_bwd_issued(b, n, c3, d):
+    """The flops csrc/shift9_bwd.cu issues per pass: S3 and dP on the
+    128-square regions of the 124-square tiles that cover N padded to 128,
+    over 3C and D padded to 32-wide chunks, then dF3 and dG3 over 3C padded
+    to 128-column tiles and dV over D padded to 96-column tiles (32 where D
+    <= 32), all over N padded to 128."""
+    npad = _up(n, 128)
+    region = _up(npad, 124) // 124 * 128
+    return (2.0 * b * region * region * (_up(c3, 32) + _up(d, 32))
+            + 2.0 * b * npad * npad * (2 * _up(c3, 128)
+                                       + _up(d, 96 if d > 32 else 32)))
+
+
+def _corr_fwd_issued(b, n, m, c, d):
+    """The flops csrc/corr_fwd.cu issues per pass: S over C padded to
+    32-wide chunks and P v over D padded to its chunks (8, 32 or 160
+    columns), over N padded to 128 and M to 64."""
+    dch = 8 if d <= 8 else 32 if d <= 32 else 160
+    return 2.0 * b * _up(n, 128) * _up(m, 64) * (_up(c, 32) + _up(d, dch))
 
 
 def _issued_flops(b, n, m, c, d, dv_cols):
@@ -619,15 +662,21 @@ def check_bigc(Kc, TC, g, *, b, n, m, timed):
                          runs=5)
     torch.cuda.empty_cache()
     flops = 2.0 * b * n * m * (BIGC_C + BIGC_D)
+    issued = _corr_fwd_issued(b, n, m, BIGC_C, BIGC_D)
     nb = _nbytes(q, k, v, o, lse)
-    bms, by = bound_ms(nb, flops, F32_FLOP_S)
+    bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
           f"f32 ({backend}) {library_ms:.3f} ms, attend_chunked "
-          f"{chunked_ms:.3f} ms, bound {bms:.3f} ms ({by}, "
-          f"{flops / 1e9:.1f} GFLOP)", flush=True)
+          f"{chunked_ms:.3f} ms, bound {bms:.3f} ms ({by}: "
+          f"{flops / 1e9:.1f} GFLOP x {SPLIT_PASSES} bf16 passes; 3xTF32 "
+          f"{tf32_ms:.3f} ms; f32 FMA {fma_ms:.3f} ms); the tiles issue "
+          f"{issued / 1e9:.1f} GFLOP per pass, "
+          f"{SPLIT_PASSES * issued / ms / 1e9:.1f} TFLOP/s of TF32",
+          flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms,
-                library=f"F.scaled_dot_product_attention f32, {backend}")
+                library=f"F.scaled_dot_product_attention f32, {backend}",
+                tf32x3_bound_ms=tf32_ms, fma_bound_ms=fma_ms)
 
 
 def check_bigc_bwd(Kc, KB, TC, g, *, b, n, m, timed):
@@ -1082,9 +1131,10 @@ KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
     ("conv operand copies", ("pad_channels", "k_major_weights")),
     ("conv3x3_onehot.cu", ("onehot_kernel",)),
     ("shift9_fwd.cu", ("shift9_fwd_kernel",)),
-    ("shift9_bwd.cu", ("shift9_bwd_kernel",)),
+    ("shift9_bwd.cu", ("shift9_bwd_scores_kernel", "shift9_bwd_reduce_kernel",
+                       "shift9_bwd::src")),
     ("corr_fwd.cu", ("corr_fwd_kernel",)),
-    ("corr_bwd.cu", ("corr_bwd_scores_kernel", "corr_bwd_gemm_kernel")),
+    ("corr_bwd.cu", ("corr_bwd_scores_kernel", "corr_bwd::src")),
     ("conv3x3_dw.cu", ("conv3x3_dw_bf16_kernel", "conv3x3_dw_f32_kernel",
                        "reduce_splits")),
     ("library conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
@@ -1095,18 +1145,23 @@ KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
 )
 
 
-# (source, ((substring of the kernel name, part), ...)): shift9_bwd.cu's
-# two passes (the owner side is the queries, or the keys); the correlation
-# backward's four launches (dv's tiles: 96 columns where D > 32, as at
-# match_kernel 1, else 32, as in bench_corr)
+# (source, ((substring of the kernel name, part), ...)): the shift9
+# backward's five launches and the correlation backward's four (the GEMMs
+# of tc_split.cuh, named after their source; dV's and dv's tiles: 96
+# columns where D > 32, as at the flagship, else 32, as in bench_corr)
 BWD_PARTS = (
-    ("shift9_bwd.cu", (("shift9_bwd_kernel<true>", "query pass"),
-                       ("shift9_bwd_kernel<false>", "key pass"))),
+    ("shift9_bwd.cu", (("shift9_bwd_scores_kernel", "scores (P, dS3)"),
+                       ("shift9_bwd_reduce_kernel", "side gradients"),
+                       ("<shift9_bwd::Src, true, 4>", "dF3 = dS3 G3"),
+                       ("<shift9_bwd::Src, false, 4>", "dG3 = dS3^T F3"),
+                       ("<shift9_bwd::Src, false, 3>", "dV = P^T gO"),
+                       ("<shift9_bwd::Src, false, 1>",
+                        "dV = P^T gO (32-column tiles)"))),
     ("corr_bwd.cu", (("corr_bwd_scores_kernel", "scores (P, dS)"),
-                     ("corr_bwd_gemm_kernel<true, 4>", "dq = dS k"),
-                     ("corr_bwd_gemm_kernel<false, 4>", "dk = dS^T q"),
-                     ("corr_bwd_gemm_kernel<false, 3>", "dv = P^T gO"),
-                     ("corr_bwd_gemm_kernel<false, 1>",
+                     ("<corr_bwd::Src, true, 4>", "dq = dS k"),
+                     ("<corr_bwd::Src, false, 4>", "dk = dS^T q"),
+                     ("<corr_bwd::Src, false, 3>", "dv = P^T gO"),
+                     ("<corr_bwd::Src, false, 1>",
                       "dv = P^T gO (32-column tiles)"))))
 
 

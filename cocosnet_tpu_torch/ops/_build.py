@@ -39,8 +39,9 @@ SIGNATURES = {
         "cocosnet_shift9_max_d": [],
     },
     "shift9_bwd": {
-        "cocosnet_shift9_bwd": [_P] * 13 + [_I] * 5 + [_P],
-        "cocosnet_shift9_bwd_smem": [_I, _I],
+        "cocosnet_shift9_bwd": [_P] * 17 + [_I] * 5 + [_P],
+        "cocosnet_shift9_bwd_tile": [],
+        "cocosnet_shift9_bwd_owned": [],
     },
     "conv3x3": {
         "cocosnet_conv3x3": [_P] * 7 + [_I] * 7 + [_F, _I, _P],

@@ -4,7 +4,8 @@ C), v (B, M, D).
 
 Counterpart of cocosnet_tpu/ops/pallas_corr.py `attend_pallas`. The core
 is a torch.autograd.Function: its forward runs the hand-written CUDA kernel
-csrc/corr_fwd.cu on a CUDA tensor, or its plain PyTorch version
+csrc/corr_fwd.cu (a flash forward, 3xTF32 on the tensor cores) on a CUDA
+tensor, or its plain PyTorch version
 (`corr_fwd_plain`) on a CPU tensor, and saves the row logsumexp; its
 backward forms dd = rowsum(gO * O) and runs csrc/corr_bwd.cu (P and dS
 formed once into scratch, then dq, dk and dv, all on the tensor cores in
@@ -59,7 +60,8 @@ def _check(what, *pairs):
 
 
 def corr_fwd_kernel(q, k, v, tau: float):
-    """Launches csrc/corr_fwd.cu: (o (B, N, D), lse (B, N))."""
+    """Launches csrc/corr_fwd.cu (a flash forward on the tensor cores in
+    3xTF32) on rows padded to 16 bytes: (o (B, N, D), lse (B, N))."""
     lib = _build.library("corr_fwd")
     b, n, c = q.shape
     m, d = v.shape[1], v.shape[2]
@@ -67,11 +69,15 @@ def corr_fwd_kernel(q, k, v, tau: float):
         raise ValueError(f"corr kernel takes D <= {lib.cocosnet_corr_max_d()};"
                          f" got D={d}")
     _check("corr kernel", (q, (b, n, c)), (k, (b, m, c)), (v, (b, m, d)))
+    if b > 65535:
+        raise ValueError(f"corr kernel takes B <= 65535 (its grid's second "
+                         f"dimension); got B={b}")
+    ops = [_rows16(t) for t in (q, k, v)]
     o = torch.empty((b, n, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.cocosnet_corr_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *(t.data_ptr() for t in ops), o.data_ptr(),
             lse.data_ptr(), b, n, m, c, d, 1.0 / tau,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "corr_fwd")

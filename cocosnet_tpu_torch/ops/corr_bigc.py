@@ -6,16 +6,17 @@ Counterpart of cocosnet_tpu/ops/pallas_corr_bigc.py `attend_pallas_bigc`,
 whose only caller is the correlation A/B tool (tools/bench_corr.py; here
 cocosnet_tpu_torch/tools/bench_corr.py). The core is a
 torch.autograd.Function. On a CUDA tensor its forward runs csrc/corr_fwd.cu,
-the forward kernel of ops/corr.attend_corr: it streams q and k in 32-channel
-chunks through shared memory, so C is not bounded by it. Its backward runs
+the forward kernel of ops/corr.attend_corr (a flash forward in 3xTF32 on
+the tensor cores): it streams q and k in 32-channel chunks through shared
+memory, so C is not bounded by it. Its backward runs
 csrc/corr_bwd.cu, the backward kernel of ops/corr.attend_corr (P and dS
 formed once into scratch, then dq, dk and dv on the tensor cores in
 3xTF32, over 128-column tiles of C), which takes 32-column dv tiles where
 D <= 32 (D = 3 here). On a CPU
 tensor both run the plain versions, which are ops/corr's `corr_fwd_plain`
 and `corr_bwd_plain`: the same function. The Pallas kernel's bf16x4
-products and its transposed V are choices for the TPU's matrix unit; the
-forward kernel multiplies in f32, the backward in 3xTF32. Both take any N
+products and its transposed V are choices for the TPU's matrix unit; both
+CUDA kernels multiply in 3xTF32. Both take any N
 and M (the Pallas kernel writes only whole 256-row query blocks and reads
 only whole key blocks, pallas_corr_bigc.py: 106, 203, 223).
 """

@@ -9,7 +9,9 @@ kv (B, 4, N: ks, kmul, kadd, 0), 1/tau folded into qs. The core is a
 torch.autograd.Function: its forward runs the hand-written CUDA kernel
 csrc/shift9_fwd.cu on a CUDA tensor, or its plain PyTorch version
 (`shift9_core_plain`) on a CPU tensor, and saves the row logsumexp; its
-backward runs csrc/shift9_bwd.cu, or `shift9_bwd_plain` on the CPU. The
+backward runs csrc/shift9_bwd.cu (dS3 and P materialized in scratch, then
+three GEMMs, all on the tensor cores in 3xTF32), or `shift9_bwd_plain` on
+the CPU. The
 gradients of the raw features flow on through `shift9_inputs` by ordinary
 autograd, as the JAX package's prep is XLA autodiff.
 """
@@ -19,12 +21,10 @@ from __future__ import annotations
 import torch
 
 from cocosnet_tpu_torch.ops import _build
+from cocosnet_tpu_torch.ops.corr import _rows16
 from cocosnet_tpu_torch.ops.corr_shift import (_cross_map, _pad_hw,
                                                _safe_norm, _shift_means,
                                                _unfold_stats)
-
-# shared memory a block may opt into on Hopper (232,448 bytes)
-_MAX_SMEM = 232448
 
 
 def _row_stack3(x: torch.Tensor) -> torch.Tensor:
@@ -179,32 +179,43 @@ def shift9_core_kernel(f3, g3, v, qv, kv, w: int):
 
 
 def shift9_bwd_kernel(f3, g3, v, qv, kv, lse, go, dd, w: int):
-    """Launches csrc/shift9_bwd.cu (its query pass, then its key pass):
-    the outputs of shift9_bwd_plain."""
+    """Launches csrc/shift9_bwd.cu (scores, a reduce of the side gradients,
+    then dF3, dG3 and dV, on the tensor cores in 3xTF32) with its dS3 and P
+    scratch (B, Np, Np) and per-tile partials: the outputs of
+    shift9_bwd_plain."""
     lib = _build.library("shift9_bwd")
     b, n, c3 = f3.shape
     d = v.shape[-1]
-    smem = lib.cocosnet_shift9_bwd_smem(c3, d)
-    if n % w or smem > _MAX_SMEM:
-        raise ValueError(f"shift9 backward kernel takes N = H * W and a "
-                         f"3C x D that fits shared memory; got N={n}, W={w}, "
-                         f"3C={c3}, D={d} ({smem} bytes)")
+    if n % w:
+        raise ValueError(f"shift9 backward kernel takes N = H * W; got N={n},"
+                         f" W={w}")
+    if b > 65535:
+        raise ValueError(f"shift9 backward kernel takes B <= 65535 (its "
+                         f"grid's third dimension); got B={b}")
     # the key side's rank-1 terms per position, its unused fourth row zero
     kvt = torch.cat([kv[:, :3].transpose(1, 2),
                      torch.zeros_like(kv[:, :1].transpose(1, 2))],
                     -1).contiguous()
     _check_f32("shift9 backward kernel", f3, g3, v, qv, kvt, lse, go, dd)
+    tile = lib.cocosnet_shift9_bwd_tile()
+    npad = -(-n // tile) * tile
+    tiles = -(-npad // lib.cocosnet_shift9_bwd_owned())
+    ops = [_rows16(t) for t in (f3, g3, v, go)]
     df3 = torch.empty_like(f3)
     dg3 = torch.empty_like(g3)
     dv = torch.empty_like(v)
     dq3 = torch.empty((b, n, 3), dtype=torch.float32, device=f3.device)
     dk3 = torch.empty_like(dq3)
+    p = torch.empty((b, npad, npad), dtype=torch.float32, device=f3.device)
+    ds = torch.empty_like(p)
+    qpart = torch.empty((b, tiles, n, 3), dtype=torch.float32,
+                        device=f3.device)
+    kpart = torch.empty_like(qpart)
     with torch.cuda.device(f3.device):
         err = lib.cocosnet_shift9_bwd(
-            f3.data_ptr(), g3.data_ptr(), v.data_ptr(), go.data_ptr(),
-            qv.data_ptr(), kvt.data_ptr(), lse.data_ptr(), dd.data_ptr(),
-            df3.data_ptr(), dq3.data_ptr(), dg3.data_ptr(), dk3.data_ptr(),
-            dv.data_ptr(), b, n, c3, d, w,
+            *(t.data_ptr() for t in (*ops, qv, kvt, lse, dd, df3, dq3, dg3,
+                                     dk3, dv, p, ds, qpart, kpart)),
+            b, n, c3, d, w,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "shift9_bwd")
     dqv = torch.cat([dq3, dq3[..., 2:3]], -1)

@@ -6,13 +6,16 @@ package's switches select.
 One process times one checkout on one route, at chip_smoke.py's flagship
 configurations and seeded random weights:
   - mk3 inference, batch 6: the forward by CUDA events (25 runs), batch-1
-    p50 end to end with preprocessing (host clock, synchronized);
+    p50 end to end with preprocessing (host clock, synchronized); the same
+    at match_kernel 1 (the dense correlation, csrc/corr_fwd.cu on the
+    default route);
   - the train steps at batch 8 (s/step over 10 steps after 2 warm-ups,
     host clock, synchronized): mk3, and on the default route also mk1 on
     the library route and on attend_corr's kernels
     (COCOSNET_PALLAS_MK1_TRAIN=1), and 5d (COCOSNET_FUSED_CONV_TRAIN=1);
-  - for one forward and one mk3 step, the device's busy time (the union of
-    its kernels in torch.profiler) and idle share of the host-timed call.
+  - for one forward of each and one mk3 step, the device's busy time (the
+    union of its kernels in torch.profiler) and idle share of the
+    host-timed call.
 
 Routes: "default" (every switch unset) or "library" (COCOSNET_FUSED_CONV=0,
 COCOSNET_ONEHOT_CONV=0 and opt.use_pallas False: every hand-written kernel
@@ -28,6 +31,9 @@ parent, change, change, parent; from the repository root:
 
 The package is imported from --root (default: this checkout); the helpers
 (weights, batches, configurations) are this checkout's chip_smoke.py.
+--only limits a process to some of the paths (mk3_inference,
+mk1_inference, mk3_step, other_steps), for more turns of one path in a
+call.
 """
 
 from __future__ import annotations
@@ -44,6 +50,9 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# what one process measures: the two forwards, the mk3 step (with its
+# device time), and the other steps of the default route
+PATHS = ("mk3_inference", "mk1_inference", "mk3_step", "other_steps")
 
 
 def _smoke():
@@ -79,9 +88,9 @@ def busy(fn) -> dict:
                 kernels=len(spans))
 
 
-def inference(CS, P, cfg, L, g, use_pallas) -> dict:
+def inference(CS, P, cfg, L, g, use_pallas, match_kernel=3) -> dict:
     L.set_compute_dtype(torch.bfloat16)
-    opt = dataclasses.replace(CS.inference_opt(cfg, 3),
+    opt = dataclasses.replace(CS.inference_opt(cfg, match_kernel),
                               use_pallas=use_pallas)
     nets = P.Pix2PixNets(opt, seed=0)
     CS.condition_weights(nets.corr, g, "cuda")
@@ -141,6 +150,8 @@ def main() -> None:
     ap.add_argument("--route", choices=("default", "library"),
                     default="default")
     ap.add_argument("--out", required=True, help="JSON lines, appended")
+    ap.add_argument("--only", choices=PATHS, nargs="+", default=PATHS,
+                    help="measure these paths only (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("ab_routes: no CUDA device")
@@ -160,12 +171,16 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     use_pallas = args.route == "default"
     g = torch.Generator().manual_seed(0)
-    rec = dict(tag=args.tag, route=args.route, build_s=build_s,
-               mk3_inference=inference(CS, P, cfg, L, g, use_pallas))
+    rec = dict(tag=args.tag, route=args.route, build_s=build_s)
+    for mk in (3, 1):
+        if f"mk{mk}_inference" in args.only:
+            rec[f"mk{mk}_inference"] = inference(CS, P, cfg, L, g,
+                                                 use_pallas, mk)
     L.set_compute_dtype(torch.bfloat16)
-    rec["mk3_step"] = train(CS, P, cfg, TS, ST, g, 3, use_pallas,
-                            profiled=True)
-    if args.route == "default":
+    if "mk3_step" in args.only:
+        rec["mk3_step"] = train(CS, P, cfg, TS, ST, g, 3, use_pallas,
+                                profiled=True)
+    if args.route == "default" and "other_steps" in args.only:
         for route in ("library", "kernels"):
             with CS.train_route(route):
                 rec[f"mk1_{route}_step"] = train(CS, P, cfg, TS, ST, g, 1,

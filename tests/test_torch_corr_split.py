@@ -23,9 +23,20 @@ BWD_REL_TOL by more than 5x (tau = 0.01 amplifies its 2^-11 logit error
 holds it with less margin (measured up to 5.6e-5, against 6.6e-6 for
 3xTF32): the kernels take 3xTF32.
 
+The forward kernel (csrc/corr_fwd.cu, both widths) is emulated the same
+way: S = q k^T and P V in 3xTF32, the softmax in f32 (P = exp(S / tau -
+m) with m the row max, o = P V / sum P). It is held against
+corr_fwd_plain at chip_smoke.py's forward tolerances (o 1e-4, outputs
+convex combinations of v in [-1, 1]; lse 1e-3) and against the JAX
+package's Pallas forwards (interpret mode) at 5e-4, tests/test_torch_corr.
+py's tolerance for them; one TF32 pass misses the o tolerance (measured
+3.4e-4 and 3.0e-3), and so does P V in one TF32 pass after S in 3xTF32
+(1.9e-4 and 3.2e-4: P in [0, 1] and v in [-1, 1] keep 11 bits): both
+products take 3xTF32 (measured 5.4e-7 and 7.5e-6).
+
 What the emulation cannot show is the tensor cores' own summation, which
 rounds each mma's sum toward zero: the kernels sum at most one 32-wide
-stage per partial before adding it in f32 (csrc/corr_bwd.cu), and
+stage per partial before adding it in f32 (tc_split.cuh), and
 chip_smoke.py holds them to BWD_REL_TOL on the card."""
 
 import numpy as np
@@ -162,3 +173,51 @@ def test_emulation_matches_pallas_grads(fn, shape):
         np.testing.assert_allclose(a.numpy(), b, rtol=0,
                                    atol=1e-3 * float(np.abs(b).max()),
                                    err_msg=name)
+
+
+def emulated_fwd(q, k, v, tau, s_split="3xtf32", pv_split="3xtf32"):
+    """corr_fwd_plain's function with S issued as s_split and P V as
+    pv_split: (o, lse)."""
+    s = _mm(q, k.transpose(1, 2), s_split) * (1.0 / tau)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1)
+    return _mm(p, v, pv_split) / l[..., None], m[..., 0] + torch.log(l)
+
+
+@pytest.fixture(scope="module", params=sorted(SHAPES))
+def fwd_case(request):
+    """The forward's inputs and corr_fwd_plain's outputs."""
+    q, k, v = map(torch.from_numpy, _inputs(*SHAPES[request.param], seed=4))
+    return (q, k, v), K.corr_fwd_plain(q, k, v, TAU)
+
+
+def _fwd_errs(got, want):
+    return [float((a - b).abs().max()) for a, b in zip(got, want)]
+
+
+def test_fwd_3xtf32_holds_fwd_tol(fwd_case):
+    args, want = fwd_case
+    eo, el = _fwd_errs(emulated_fwd(*args, TAU), want)
+    assert eo <= 1e-4 and el <= 1e-3, (eo, el)
+
+
+@pytest.mark.parametrize("s_split,pv_split", [("1xtf32", "1xtf32"),
+                                              ("3xtf32", "1xtf32")])
+def test_fwd_one_tf32_pass_does_not(fwd_case, s_split, pv_split):
+    args, want = fwd_case
+    eo, _ = _fwd_errs(emulated_fwd(*args, TAU, s_split, pv_split), want)
+    assert eo > 1e-4, eo
+
+
+@pytest.mark.parametrize("fn,shape", [
+    (attend_pallas, (1, 256, 256, 256, 154)),
+    (attend_pallas_bigc, (1, 256, 256, 2304, 3))],
+    ids=["attend_pallas", "attend_pallas_bigc"])
+def test_fwd_emulation_matches_pallas(fn, shape):
+    """The emulated forward against the Pallas forward at a size it takes
+    whole."""
+    q, k, v = _inputs(*shape, seed=6)
+    got, _ = emulated_fwd(*map(torch.from_numpy, (q, k, v)), TAU)
+    want = np.asarray(fn(*(jnp.asarray(a) for a in (q, k, v)), TAU))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-4)

@@ -121,11 +121,15 @@ def test_shift9_kernel_matches_plain(gen, shape, pono_c):
 @pytest.mark.parametrize("pono_c", [True, False])
 @pytest.mark.parametrize("shape", [(8, 16, 16, 3), (16, 16, 8, 5),
                                    (4, 128, 16, 7), (2, 128, 32, 40),
-                                   (5, 13, 8, 4), (4, 16, 16, 154)])
+                                   (5, 13, 8, 4), (4, 16, 16, 154),
+                                   # N = 260, a multiple of neither the
+                                   # 124-position tiles nor the 128-row
+                                   # scratch, at an odd width
+                                   (20, 13, 8, 5)])
 def test_shift9_bwd_kernel_matches_plain(gen, shape, pono_c):
     """The backward kernel's five outputs against shift9_bwd_plain on the
-    same inputs, each within 1e-4 of its largest magnitude (f32 sums over
-    N in another order, 1/tau = 100 in the logits)."""
+    same inputs, each within 1e-4 of its largest magnitude (3xTF32
+    products, sums over N in another order, 1/tau = 100 in the logits)."""
     h, w, c, d = shape
     f, g = _r(gen, 2, h, w, c), _r(gen, 2, h, w, c, scale=1.5) + 0.2
     v, go = _r(gen, 2, h * w, d), _r(gen, 2, h * w, d)
@@ -139,6 +143,22 @@ def test_shift9_bwd_kernel_matches_plain(gen, shape, pono_c):
                                    atol=1e-4 * float(r.abs().max()), msg=name)
     assert torch.equal(got[1][..., 3], got[1][..., 2])
     assert not got[3][:, 3].any()
+
+
+@pytest.mark.parametrize("shape", [(20, 13, 8, 5), (4, 64, 16, 154)])
+def test_shift9_bwd_kernel_gives_the_same_bits(gen, shape):
+    """Two launches of the backward kernel on the same inputs give the
+    same bits: every sum (the scores' partials, their reduce over the
+    tiles, the three GEMMs) runs in one order, with no atomics."""
+    h, w, c, d = shape
+    f, g = _r(gen, 2, h, w, c), _r(gen, 2, h, w, c, scale=1.5) + 0.2
+    v, go = _r(gen, 2, h * w, d), _r(gen, 2, h * w, d)
+    f3, g3, qv, kv = S.shift9_inputs(f, g, 0.01, True)
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    args = (f3, g3, v, qv, kv, lse, go, (go * o).sum(-1), w)
+    got = S.shift9_bwd_kernel(*args)
+    again = S.shift9_bwd_kernel(*args)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
 
 
 @pytest.mark.parametrize("w", [16, 128])
@@ -372,7 +392,10 @@ def test_dw_splits_fill_two_waves(gen):
 
 
 @pytest.mark.parametrize("shape", [(1, 200, 300, 2304, 3), (2, 64, 90, 256, 7),
-                                   (1, 33, 70, 1000, 40)])
+                                   (1, 33, 70, 1000, 40),
+                                   # N and M ragged against the forward's
+                                   # 128-query and 64-key tiles
+                                   (2, 130, 100, 2304, 3)])
 def test_bigc_kernels_match_plain(gen, shape):
     """The large-descriptor path: corr_fwd.cu and corr_bwd.cu against
     the plain versions (B, N, M, C, D), N != M: o within 2e-5, lse within
