@@ -45,6 +45,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
@@ -89,6 +90,27 @@ def time_ms(fn, runs: int = TIMED_RUNS) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, keys, runs: int = 10) -> dict:
+    """Device time per call of `fn`'s kernels whose names hold each of
+    `keys`, from torch.profiler over `runs` calls after a warm-up: the
+    launches' own time, without the host's time between them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(keys, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in keys:
+                if k in e.name:
+                    us[k] += e.time_range.elapsed_us()
+    return {k: v / runs / 1e3 for k, v in us.items()}
 
 
 def _nbytes(*ts) -> int:
@@ -182,8 +204,25 @@ def check_onehot(C, g, *, dtype):
            f"onehot 151->64 @256^2 stats {dtype}: errs out/mean/var "
            f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} <= "
            f"{tol:.3g}/{1e-5 * scale:.3g}/{vtol:.3g}")
+    again = C.conv3x3_onehot(lab, k, bias, dtype=dtype, want_stats=True)
+    _check(all(torch.equal(a, c) for a, c in zip(got, again)),
+           f"onehot {dtype}: two launches give the same bits (out, mean, "
+           f"var)")
+    del again
     kd = k.to(dtype)
     ms = time_ms(lambda: C._onehot_kernel(lab, kd, bias, dtype, None, True))
+    gather_ms = time_ms(lambda: C._onehot_kernel(lab, kd, bias, dtype, None,
+                                                 False))
+    # the route not taken: the per-block partials reduced by torch ops
+    from cocosnet_tpu_torch.ops import _build
+    blocks = _build.library("conv3x3_onehot").cocosnet_onehot_blocks(
+        b, h, w, nc, co, int(dtype == torch.bfloat16),
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    part = torch.rand(b, blocks, 2, co, generator=g).to(dev)
+    torch_ms = time_ms(lambda: C._moments(part.sum(dim=1), h * w))
+    dev_ms = device_ms(lambda: C._onehot_kernel(lab, kd, bias, dtype, None,
+                                                True),
+                       ("onehot::onehot_kernel", "onehot::moments_kernel"))
     plain_ms = time_ms(lambda: C.onehot_plain(lab, kd, bias, dtype=dtype,
                                               want_stats=True))
     dense = (lab[..., None] == torch.arange(nc, device=dev)).to(
@@ -194,9 +233,13 @@ def check_onehot(C, g, *, dtype):
     out_bytes = b * h * w * co * torch.finfo(dtype).bits // 8
     nb = _nbytes(lab, kd, bias) + out_bytes
     bms, by = bound_ms(nb, 9.0 * b * h * w * co, F32_FLOP_S)
-    print(f"     onehot {dtype}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-          f"ms, F.conv2d(dense one-hot) {library_ms:.3f} ms, bound "
-          f"{bms:.3f} ms ({by})", flush=True)
+    print(f"     onehot {dtype}: kernel {ms:.3f} ms (the gather alone "
+          f"{gather_ms:.3f}; device time of the gather "
+          f"{dev_ms['onehot::onehot_kernel']:.4f} and of the moments "
+          f"launch {dev_ms['onehot::moments_kernel']:.4f}; torch's "
+          f"reduction of the same partials {torch_ms:.3f}), plain "
+          f"{plain_ms:.3f} ms, F.conv2d(dense one-hot) {library_ms:.3f} ms, "
+          f"bound {bms:.3f} ms ({by}); {nb / ms / 1e6:.0f} GB/s", flush=True)
     return dict(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms)
 
@@ -204,6 +247,7 @@ def check_onehot(C, g, *, dtype):
 def check_shift9(S, g, *, pono_c):
     dev = "cuda"
     b, h, w, c, d = 6, 64, 64, 256, 154
+    n = h * w
     f = torch.randn(b, h, w, c, generator=g).to(dev)
     gg = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.2).to(dev)
     v = torch.rand(b, h * w, d, generator=g).to(dev) * 2 - 1
@@ -219,23 +263,35 @@ def check_shift9(S, g, *, pono_c):
            f"1e-4, lse err {lerr:.3g} <= 1e-3")
     del po, plse
     ms = time_ms(lambda: S.shift9_core_kernel(f3, g3, v, qv, kv, w))
+    parts = S.shift9_fwd_parts(b, n, d, f3.device)
+    # the waves: the same launch with the key regions in one part
+    with mock.patch.object(S, "shift9_fwd_parts", return_value=1):
+        one_ms = time_ms(lambda: S.shift9_core_kernel(f3, g3, v, qv, kv, w))
+    dev_ms = device_ms(lambda: S.shift9_core_kernel(f3, g3, v, qv, kv, w),
+                       ("shift9_fwd::shift9_fwd_kernel",
+                        "shift9_fwd::shift9_fwd_combine_kernel"), runs=5)
     plain_ms = time_ms(lambda: S.shift9_core_plain(f3, g3, v, qv, kv, w),
                        runs=5)
     wrapper_ms = time_ms(lambda: S.attend_shift9(f, gg, v, 0.01, pono_c))
-    n = h * w
     flops = 2.0 * b * n * n * (3 * c + d)
     nb = _nbytes(f3, g3, v, qv, kv) + b * n * (d + 1) * 4
     bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
+    issued = _shift9_fwd_issued(b, n, 3 * c, d)
     del f3, g3, qv, kv
     torch.cuda.empty_cache()
     lib = shift9_yardstick(f, gg, v, pono_c, o)
-    print(f"     shift9 pono_c={pono_c}: kernel {ms:.3f} ms (with the "
+    print(f"     shift9 pono_c={pono_c}: kernel {ms:.3f} ms (device time "
+          f"of the flash launch "
+          f"{dev_ms['shift9_fwd::shift9_fwd_kernel']:.3f}, of the combine "
+          f"{dev_ms['shift9_fwd::shift9_fwd_combine_kernel']:.3f}; with the "
           f"torch prep {wrapper_ms:.3f} ms), plain {plain_ms:.3f} ms, "
           f"{lib['library']} {lib['library_ms']:.3f} ms (+ descriptors "
           f"{lib['prep_ms']:.3f} ms), bound {bms:.3f} ms ({by}: "
           f"{flops / 1e9:.1f} GFLOP x {SPLIT_PASSES} bf16 passes; 3xTF32 "
-          f"{tf32_ms:.3f} ms; f32 FMA {fma_ms:.3f} ms, the rate this kernel "
-          f"multiplies at)", flush=True)
+          f"{tf32_ms:.3f} ms; f32 FMA {fma_ms:.3f} ms); the tiles issue "
+          f"{issued / 1e9:.1f} GFLOP per pass in {parts} key parts, "
+          f"{SPLIT_PASSES * issued / ms / 1e9:.1f} TFLOP/s of TF32 (in one "
+          f"part {one_ms:.3f} ms)", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib["library_ms"],
                 library=lib["library"], tf32x3_bound_ms=tf32_ms,
@@ -327,6 +383,11 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
            + f" <= {BWD_REL_TOL:g} (f32 sums reordered, 1/tau in the logits)")
     if not timed:
         return None
+    fwd_ms = time_ms(lambda: S.shift9_core_kernel(f3, g3, v, qv, kv, w))
+    rate = SPLIT_PASSES * _shift9_fwd_issued(b, n, 3 * c, d) / fwd_ms / 1e9
+    print(f"     shift9 forward B{b} pono_c={pono_c}: kernel {fwd_ms:.3f} ms "
+          f"in {S.shift9_fwd_parts(b, n, d, f3.device)} key parts, "
+          f"{rate:.1f} TFLOP/s of TF32", flush=True)
     again = S.shift9_bwd_kernel(*args)
     _check(all(torch.equal(a, r) for a, r in zip(got, again)),
            f"{label} backward: two launches give the same bits")
@@ -462,6 +523,16 @@ def _shift9_bwd_issued(b, n, c3, d):
     return (2.0 * b * region * region * (_up(c3, 32) + _up(d, 32))
             + 2.0 * b * npad * npad * (2 * _up(c3, 128)
                                        + _up(d, 96 if d > 32 else 32)))
+
+
+def _shift9_fwd_issued(b, n, c3, d):
+    """The flops csrc/shift9_fwd.cu issues per pass: S3 over 3C padded to
+    32-wide chunks and P V over D padded to its chunks (8, 32 or 160
+    columns, S3 again for each chunk), on 128-row query regions of
+    126-query tiles and 64-column key regions of 62-key ones."""
+    dch = 8 if d <= 8 else 32 if d <= 32 else 160
+    rows, cols = -(-n // 126) * 128, -(-n // 62) * 64
+    return 2.0 * b * rows * cols * -(-d // dch) * (_up(c3, 32) + dch)
 
 
 def _corr_fwd_issued(b, n, m, c, d):
@@ -1129,8 +1200,8 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
 KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
     ("conv3x3.cu", ("conv3x3_bf16_kernel", "conv3x3_f32_kernel")),
     ("conv operand copies", ("pad_channels", "k_major_weights")),
-    ("conv3x3_onehot.cu", ("onehot_kernel",)),
-    ("shift9_fwd.cu", ("shift9_fwd_kernel",)),
+    ("conv3x3_onehot.cu", ("onehot::",)),
+    ("shift9_fwd.cu", ("shift9_fwd::",)),
     ("shift9_bwd.cu", ("shift9_bwd_scores_kernel", "shift9_bwd_reduce_kernel",
                        "shift9_bwd::src")),
     ("corr_fwd.cu", ("corr_fwd_kernel",)),
@@ -1145,11 +1216,19 @@ KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
 )
 
 
-# (source, ((substring of the kernel name, part), ...)): the shift9
-# backward's five launches and the correlation backward's four (the GEMMs
-# of tc_split.cuh, named after their source; dV's and dv's tiles: 96
-# columns where D > 32, as at the flagship, else 32, as in bench_corr)
-BWD_PARTS = (
+# (source, ((substring of the kernel name, part), ...)): the launches of
+# the kernels that make more than one: the shift9 forward's two and the
+# one-hot conv's two, the shift9 backward's five and the correlation
+# backward's four (the GEMMs of tc_split.cuh, named after their source;
+# dV's and dv's tiles: 96 columns where D > 32, as at the flagship, else
+# 32, as in bench_corr)
+KERNEL_PARTS = (
+    ("shift9_fwd.cu", (("shift9_fwd::shift9_fwd_kernel",
+                        "flash (S3, softmax, P V)"),
+                       ("shift9_fwd::shift9_fwd_combine_kernel",
+                        "combine of the key parts"))),
+    ("conv3x3_onehot.cu", (("onehot::onehot_kernel", "gather"),
+                           ("onehot::moments_kernel", "moments"))),
     ("shift9_bwd.cu", (("shift9_bwd_scores_kernel", "scores (P, dS3)"),
                        ("shift9_bwd_reduce_kernel", "side gradients"),
                        ("<shift9_bwd::Src, true, 4>", "dF3 = dS3 G3"),
@@ -1202,8 +1281,8 @@ def profile_call(fn) -> None:
     for key, (n, us) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
         print(f"  {key:24s} {n:5d} launches {us / 1e3:9.3f} ms "
               f"{us / total:6.1%}")
-    # the backward kernels' parts, by kernel name and template arguments
-    for src, parts in BWD_PARTS:
+    # the kernels' parts, by kernel name and template arguments
+    for src, parts in KERNEL_PARTS:
         for key, what in parts:
             us = sum(e.time_range.elapsed_us() for e in kernels
                      if key in e.name)

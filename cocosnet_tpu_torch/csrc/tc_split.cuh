@@ -1,6 +1,6 @@
 // Split-precision products on the tensor cores, shared by the correlation
-// kernels (corr_bwd.cu, corr_fwd.cu, shift9_bwd.cu): f32 operands in,
-// f32 sums out, each product issued as three TF32 passes on
+// kernels (corr_bwd.cu, corr_fwd.cu, shift9_fwd.cu, shift9_bwd.cu): f32
+// operands in, f32 sums out, each product issued as three TF32 passes on
 // mma.sync.m16n8k8.
 //
 // 3xTF32: each operand x splits into hi = tf32(x) and lo = tf32(x - hi)
@@ -109,8 +109,8 @@ __device__ __forceinline__ void load_kmajor(float* s, const float* g, int ld,
 }
 
 // BK x COLS of a row-major (K, cols) matrix g (leading dimension ld), rows
-// (the contraction) k0.., columns col0..; rows past krows and columns past
-// ncols (a multiple of 4) load as zeros. Staged [BK][COLS + 4].
+// (the contraction) k0.., columns col0..; rows outside [0, krows) and
+// columns past ncols (a multiple of 4) load as zeros. Staged [BK][COLS + 4].
 template <int COLS, int NTH = NT>
 __device__ __forceinline__ void load_kmn(float* s, const float* g, int ld,
                                          int k0, int krows, int col0,
@@ -121,7 +121,8 @@ __device__ __forceinline__ void load_kmn(float* s, const float* g, int ld,
     const int e = threadIdx.x + NTH * i;
     if (CH % NTH != 0 && e >= CH) break;
     const int r = e / CPR, c = (e % CPR) * 4;
-    const bool ok = k0 + r < krows && col0 + c < ncols;
+    const bool ok = static_cast<unsigned>(k0 + r) <
+                        static_cast<unsigned>(krows) && col0 + c < ncols;
     cp16(s + r * (COLS + 4) + c,
          ok ? g + (size_t)(k0 + r) * ld + col0 + c : g, ok);
   }

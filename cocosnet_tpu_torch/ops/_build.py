@@ -35,8 +35,10 @@ _F = ctypes.c_float
 # C signature of every exported launcher: name -> argtypes (all return int)
 SIGNATURES = {
     "shift9_fwd": {
-        "cocosnet_shift9_fwd": [_P] * 7 + [_I] * 5 + [_P],
+        "cocosnet_shift9_fwd": [_P] * 9 + [_I] * 6 + [_P],
         "cocosnet_shift9_max_d": [],
+        "cocosnet_shift9_fwd_blocks": [_I] * 3,
+        "cocosnet_shift9_fwd_key_regions": [_I],
     },
     "shift9_bwd": {
         "cocosnet_shift9_bwd": [_P] * 17 + [_I] * 5 + [_P],
@@ -48,8 +50,8 @@ SIGNATURES = {
         "cocosnet_conv3x3_tile_pixels": [],
     },
     "conv3x3_onehot": {
-        "cocosnet_conv3x3_onehot": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
-        "cocosnet_onehot_tile_pixels": [],
+        "cocosnet_conv3x3_onehot": [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
+        "cocosnet_onehot_blocks": [_I] * 7,
     },
     "corr_fwd": {
         "cocosnet_corr_fwd": [_P] * 5 + [_I] * 5 + [_F, _P],

@@ -337,7 +337,9 @@ def onehot_plain(labels: torch.Tensor, kernel: torch.Tensor,
 
 
 def _onehot_kernel(labels, kernel, bias, dtype, leaky, want_stats):
-    """Launches csrc/conv3x3_onehot.cu."""
+    """Launches csrc/conv3x3_onehot.cu: the gather (the weight table in
+    shared memory, about one block an SM), then with want_stats the
+    moments' launch, which sums the per-block partials in a fixed order."""
     if dtype not in _KERNEL_DTYPES:
         raise ValueError(f"conv3x3_onehot: kernel takes f32 or bf16, got "
                          f"{dtype}")
@@ -347,28 +349,39 @@ def _onehot_kernel(labels, kernel, bias, dtype, leaky, want_stats):
     b, h, w = labels.shape
     c, cout = kernel.shape[2], kernel.shape[3]
     lib = _build.library("conv3x3_onehot")
+    is_bf16 = int(dtype == torch.bfloat16)
+    sms = torch.cuda.get_device_properties(
+        labels.device).multi_processor_count
+    blocks = lib.cocosnet_onehot_blocks(b, h, w, c, cout, is_bf16, sms)
+    if blocks == 0:
+        raise ValueError(f"conv3x3_onehot: the weight table of {c} classes "
+                         f"does not fit the kernel's shared memory")
     lab = labels.to(torch.int32).contiguous()
-    k = kernel.to(device=labels.device, dtype=dtype).contiguous()
+    # the table's rows as 16-byte vectors: Cout padded to a multiple of 8
+    k = kernel.to(device=labels.device, dtype=dtype)
+    k = F.pad(k, (0, -cout % 8)) if cout % 8 else k.contiguous()
+    if k.data_ptr() % 16:
+        k = k.clone()
     bias = (torch.zeros(cout, device=labels.device) if bias is None
             else bias.to(device=labels.device,
                          dtype=torch.float32).contiguous())
     out = torch.empty((b, h, w, cout), dtype=dtype, device=labels.device)
-    stats = None
+    part = moments = None
     if want_stats:
-        tiles = -(-(h * w) // lib.cocosnet_onehot_tile_pixels())
-        stats = torch.empty((b, tiles, 2, cout), dtype=torch.float32,
-                            device=labels.device)
+        part = torch.empty((b, blocks, 2, cout), dtype=torch.float32,
+                           device=labels.device)
+        moments = torch.empty((2, b, cout), dtype=torch.float32,
+                              device=labels.device)
     with torch.cuda.device(labels.device):
         err = lib.cocosnet_conv3x3_onehot(
             lab.data_ptr(), k.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            stats.data_ptr() if want_stats else None, b, h, w, c, cout,
-            int(leaky is not None), float(leaky or 0.0),
-            int(dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            *(None if t is None else t.data_ptr() for t in (part, moments)),
+            b, h, w, c, cout, int(leaky is not None), float(leaky or 0.0),
+            is_bf16, sms, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "conv3x3_onehot")
     if not want_stats:
         return out
-    return (out,) + _moments(stats.sum(dim=1), h * w)
+    return out, moments[0, :, None, None, :], moments[1, :, None, None, :]
 
 
 def conv3x3_onehot(labels: torch.Tensor, kernel: torch.Tensor,

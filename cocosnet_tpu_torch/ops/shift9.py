@@ -7,7 +7,8 @@ wrapper prepares, in PyTorch, what the kernels consume (pallas_shift9.py:
 centering/normalization terms qv (B, N, 4: qs, qmul, qadd, cadd) and
 kv (B, 4, N: ks, kmul, kadd, 0), 1/tau folded into qs. The core is a
 torch.autograd.Function: its forward runs the hand-written CUDA kernel
-csrc/shift9_fwd.cu on a CUDA tensor, or its plain PyTorch version
+csrc/shift9_fwd.cu (S3 and P V on the tensor cores in 3xTF32, two
+launches) on a CUDA tensor, or its plain PyTorch version
 (`shift9_core_plain`) on a CPU tensor, and saves the row logsumexp; its
 backward runs csrc/shift9_bwd.cu (dS3 and P materialized in scratch, then
 three GEMMs, all on the tensor cores in 3xTF32), or `shift9_bwd_plain` on
@@ -157,8 +158,36 @@ def _check_f32(what, *ts):
                              "device")
 
 
+def fwd_parts(blocks: int, regions: int, sms: int) -> int:
+    """How many parts the forward kernel cuts its key regions into, each
+    part a block of its own per query tile: of the counts 1 .. 4 that
+    leave no part empty, the one whose blocks (`blocks` a part, one an SM)
+    fill the last of their waves on `sms` SMs best, the fewest on a tie."""
+    best, fill = 1, 0.0
+    for parts in range(1, min(4, regions) + 1):
+        if -(-regions // -(-regions // parts)) != parts:
+            continue   # a part would be empty
+        n = blocks * parts
+        f = n / (-(-n // sms) * sms)
+        if f > fill + 1e-9:
+            best, fill = parts, f
+    return best
+
+
+def shift9_fwd_parts(b: int, n: int, d: int, device) -> int:
+    """fwd_parts at (B, N, D) on the card of `device`."""
+    lib = _build.library("shift9_fwd")
+    return fwd_parts(lib.cocosnet_shift9_fwd_blocks(b, n, d),
+                     lib.cocosnet_shift9_fwd_key_regions(n),
+                     torch.cuda.get_device_properties(
+                         device).multi_processor_count)
+
+
 def shift9_core_kernel(f3, g3, v, qv, kv, w: int):
-    """Launches csrc/shift9_fwd.cu: (o (B, N, D), lse (B, N))."""
+    """Launches csrc/shift9_fwd.cu (a flash forward on the tensor cores in
+    3xTF32, its key regions cut into the parts that fill whole waves, then
+    a combine of the parts) on rows padded to 16 bytes, with the parts'
+    scratch: (o (B, N, D), lse (B, N))."""
     lib = _build.library("shift9_fwd")
     b, n, c3 = f3.shape
     d = v.shape[-1]
@@ -166,14 +195,21 @@ def shift9_core_kernel(f3, g3, v, qv, kv, w: int):
         raise ValueError(f"shift9 kernel takes N = H * W and D <= "
                          f"{lib.cocosnet_shift9_max_d()}; got N={n}, W={w}, "
                          f"D={d}")
+    if b > 65535:
+        raise ValueError(f"shift9 kernel takes B <= 65535 (its grid's second "
+                         f"dimension); got B={b}")
     _check_f32("shift9 kernel", f3, g3, v, qv, kv)
+    parts = shift9_fwd_parts(b, n, d, f3.device)
+    ops = [_rows16(t) for t in (f3, g3, v)]
     o = torch.empty((b, n, d), dtype=torch.float32, device=f3.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=f3.device)
+    opart = torch.empty((parts, b, n, d), dtype=torch.float32,
+                        device=f3.device)
+    ml = torch.empty((parts, b, n, 2), dtype=torch.float32, device=f3.device)
     with torch.cuda.device(f3.device):
         err = lib.cocosnet_shift9_fwd(
-            f3.data_ptr(), g3.data_ptr(), v.data_ptr(), qv.data_ptr(),
-            kv.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, c3, d, w,
-            torch.cuda.current_stream().cuda_stream)
+            *(t.data_ptr() for t in (*ops, qv, kv, o, lse, opart, ml)),
+            b, n, c3, d, w, parts, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "shift9_fwd")
     return o, lse
 

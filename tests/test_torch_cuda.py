@@ -88,9 +88,20 @@ def test_conv3x3_kernel_leaky(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_onehot_kernel_matches_plain(gen, dtype):
-    lab = torch.randint(-1, 21, (2, 9, 33), generator=gen).to("cuda")
-    k, bias = _r(gen, 3, 3, 19, 70, scale=0.3), _r(gen, 70, scale=0.1)
+@pytest.mark.parametrize("shape", [
+    (2, 9, 33, 70, 19),
+    # widths not a multiple of the 128-column tile, heights not one of its
+    # 4 rows, Cout 70 (the table padded to 72, stores channel by channel)
+    (1, 7, 200, 70, 19), (3, 6, 130, 70, 19),
+    # Cout a multiple of 8 (16-byte stores); three channel blocks
+    (2, 5, 140, 64, 19), (1, 8, 128, 136, 19),
+    # 151 classes: 64 channels a block in bf16, 32 in f32; 183 classes
+    # (COCO-Stuff with its don't-care label): 32 in bf16, 16 in f32
+    (2, 12, 256, 64, 151), (1, 9, 140, 64, 183)])
+def test_onehot_kernel_matches_plain(gen, dtype, shape):
+    b, h, w, cout, nc = shape
+    lab = torch.randint(-1, nc + 2, (b, h, w), generator=gen).to("cuda")
+    k, bias = _r(gen, 3, 3, nc, cout, scale=0.3), _r(gen, cout, scale=0.1)
     n = C.conv3x3_onehot.launches
     got = C.conv3x3_onehot(lab, k, bias, dtype=dtype, want_stats=True)
     assert C.conv3x3_onehot.launches == n + 1
@@ -99,13 +110,34 @@ def test_onehot_kernel_matches_plain(gen, dtype):
                                atol=_tol(want[0], dtype))
     for a, r in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+    plain = C.conv3x3_onehot(lab, k, bias, dtype=dtype, leaky=0.2)
+    torch.testing.assert_close(
+        plain.float(), C.onehot_plain(lab, k, bias, dtype=dtype,
+                                      leaky=0.2).float(),
+        rtol=0, atol=_tol(want[0], dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_kernel_gives_the_same_bits(gen, dtype):
+    """Two launches give the same output and moments: the statistics are
+    summed per tile and then over the tiles in a fixed order, no
+    atomics."""
+    lab = torch.randint(-1, 153, (3, 37, 200), generator=gen).to("cuda")
+    k, bias = _r(gen, 3, 3, 151, 64, scale=0.3), _r(gen, 64, scale=0.1)
+    got = C.conv3x3_onehot(lab, k, bias, dtype=dtype, want_stats=True)
+    again = C.conv3x3_onehot(lab, k, bias, dtype=dtype, want_stats=True)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
 
 
 @pytest.mark.parametrize("pono_c", [True, False])
 @pytest.mark.parametrize("shape", [(8, 8, 16, 3), (32, 8, 16, 5),
                                    (16, 16, 8, 3), (4, 64, 32, 40),
                                    (4, 128, 16, 7), (5, 13, 8, 4),
-                                   (4, 16, 16, 154)])
+                                   (4, 16, 16, 154),
+                                   # N = 260, a multiple of neither the
+                                   # 126-query tiles nor the 62-key
+                                   # regions, at an odd width
+                                   (20, 13, 8, 5)])
 def test_shift9_kernel_matches_plain(gen, shape, pono_c):
     h, w, c, d = shape
     f, g = _r(gen, 2, h, w, c), _r(gen, 2, h, w, c, scale=1.5) + 0.2
@@ -114,8 +146,57 @@ def test_shift9_kernel_matches_plain(gen, shape, pono_c):
     got = S.attend_shift9(f, g, v, 0.01, pono_c)
     assert S.attend_shift9.launches == n + 1
     f3, g3, qv, kv = S.shift9_inputs(f, g, 0.01, pono_c)
-    want = S.shift9_core_plain(f3, g3, v, qv, kv, w)[0]
+    want, wlse = S.shift9_core_plain(f3, g3, v, qv, kv, w)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)[1]
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [
+    # 3 x 48 = 144 query tiles, cut into 3 parts of the key regions: 432
+    # blocks, 3.3 waves of 132 SMs
+    (48, 16, 16, 8, 5),
+    # 120 blocks in one part; the flagship's D in 144 query tiles, 4 parts
+    (40, 16, 16, 8, 5), (16, 64, 16, 32, 154)])
+def test_shift9_kernel_spans_waves(gen, shape):
+    """Batches whose blocks span more than one wave of the card, with the
+    key regions in one part and in several, against the plain version."""
+    b, h, w, c, d = shape
+    f, g = _r(gen, b, h, w, c), _r(gen, b, h, w, c, scale=1.5) + 0.2
+    v = _r(gen, b, h * w, d)
+    f3, g3, qv, kv = S.shift9_inputs(f, g, 0.01, True)
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    want, wlse = S.shift9_core_plain(f3, g3, v, qv, kv, w)
+    torch.testing.assert_close(o, want, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=1e-4)
+
+
+def test_shift9_kernel_geometry(gen):
+    """The forward kernel's blocks a part and key regions, which the
+    wrapper's choice of parts (S.fwd_parts, held on the CPU) reads: 126
+    queries a block, 62 keys a region, value columns in chunks of 160."""
+    from cocosnet_tpu_torch.ops import _build
+    lib = _build.library("shift9_fwd")
+    assert [lib.cocosnet_shift9_fwd_blocks(*a) for a in (
+        (48, 256, 5), (6, 4096, 154), (8, 4096, 154), (1, 126, 161))] == [
+        144, 198, 264, 2]
+    assert [lib.cocosnet_shift9_fwd_key_regions(n)
+            for n in (256, 4096, 62, 63)] == [5, 67, 1, 2]
+
+
+@pytest.mark.parametrize("shape", [(20, 13, 8, 5), (48, 16, 16, 8, 5),
+                                   (4, 64, 16, 154)])
+def test_shift9_kernel_gives_the_same_bits(gen, shape):
+    """Two launches of the forward kernel give the same o and lse: each
+    part's sums run in one order, and the parts combine in order."""
+    b, (h, w, c, d) = (2, shape) if len(shape) == 4 else (shape[0],
+                                                          shape[1:])
+    f, g = _r(gen, b, h, w, c), _r(gen, b, h, w, c, scale=1.5) + 0.2
+    v = _r(gen, b, h * w, d)
+    f3, g3, qv, kv = S.shift9_inputs(f, g, 0.01, False)
+    got = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    again = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
 
 
 @pytest.mark.parametrize("pono_c", [True, False])
@@ -251,6 +332,11 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
     x = _r(gen, 1, 8, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="f32 or bf16"):
         C.conv3x3_fused(x, _r(gen, 3, 3, 64, 64, dtype=torch.float16))
+    # the one-hot kernel holds its weight table in shared memory
+    with pytest.raises(ValueError, match="does not fit"):
+        C.conv3x3_onehot(torch.zeros(1, 8, 16, dtype=torch.int32,
+                                     device="cuda"),
+                         _r(gen, 3, 3, 3000, 64), dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("entry", ["stats", "onehot"])

@@ -69,3 +69,19 @@ def test_shift9_lse_is_the_row_logsumexp():
     assert lse.shape == (2, 64) and torch.isfinite(lse).all()
     vmin, vmax = v.min(axis=1)[:, None], v.max(axis=1)[:, None]
     assert (o.numpy() >= vmin - 1e-5).all() and (o.numpy() <= vmax + 1e-5).all()
+
+
+@pytest.mark.parametrize("blocks,regions,parts", [
+    # the flagship forward at B 6 (33 query tiles x 6, 67 key regions):
+    # 198 blocks are 1.5 waves of 132 SMs, two parts make three whole ones
+    (198, 67, 2),
+    # at B 8 (the train step) 264 blocks are two whole waves already
+    (264, 67, 1),
+    # tests/test_torch_cuda.py's wave shapes
+    (144, 5, 3), (120, 5, 1), (144, 17, 4),
+    # no part is left empty: 5 regions in 4 parts would leave one
+    (6, 5, 3), (2, 2, 2), (1, 1, 1)])
+def test_forward_parts_fill_whole_waves(blocks, regions, parts):
+    """The forward kernel's key regions are cut into the parts that fill
+    the last wave of a 132-SM H100 best, the fewest on a tie."""
+    assert S.fwd_parts(blocks, regions, 132) == parts

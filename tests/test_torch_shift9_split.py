@@ -24,10 +24,26 @@ where the plain version itself is 5.1e-5 from f64).
 
 dqs = sum_j gl logits / qs cancels across a row (gl sums to zero), so its
 error is the largest of the five, in the plain version as in the split
-(chip_smoke.py's BWD_REL_TOL note). What the emulation cannot show is the
-tensor cores' own summation, which rounds each mma's sum toward zero: the
-kernel sums at most one 32-wide stage of S3 per partial before adding it
-in f32, and chip_smoke.py holds it to BWD_REL_TOL on the card."""
+(chip_smoke.py's BWD_REL_TOL note).
+
+The forward kernel (csrc/shift9_fwd.cu) is emulated the same way: S3 = F3
+G3^T and P V each issued as 3xTF32, the shifts and the logits in f32 as in
+shift9_core_plain, the softmax from the row max (P = exp(logits - m), o =
+P V / sum P, lse = m + log sum P). It is held against shift9_core_plain at
+chip_smoke.py's forward tolerances (o 1e-4, outputs convex combinations of
+v in [-1, 1]; lse 1e-3), pono_c True and False, at the odd widths above,
+D 5 and 154, and against the JAX package's Pallas forward (interpret mode)
+at 3e-4, tests/test_torch_shift9.py's tolerance for it (measured: o
+within 2.6e-6, lse within 1.1e-5). bf16x3, the Pallas kernel's split,
+holds the forward's tolerances too, with less margin (o 3.6e-5 to
+8.9e-5). One TF32 pass misses the o tolerance (3.1e-3 to 4.3e-3), and so
+does P V in one TF32 pass after S3 in 3xTF32 (2.7e-4 to 3.2e-4): the
+kernel issues both products in 3xTF32, the split its backward needs.
+
+What the emulation cannot show is the tensor cores' own summation, which
+rounds each mma's sum toward zero: the kernels sum at most one 32-wide
+stage of S3 per partial before adding it in f32, and chip_smoke.py holds
+them to their tolerances on the card."""
 
 import numpy as np
 import pytest
@@ -37,6 +53,7 @@ import jax.numpy as jnp
 import torch
 
 from cocosnet_tpu.ops import pallas_shift9
+from cocosnet_tpu.ops.pallas_shift9 import attend_shift9 as j_attend_shift9
 from cocosnet_tpu_torch.ops import shift9 as S
 from test_torch_corr_split import _mm
 from test_torch_threads import torch_threads  # noqa: F401
@@ -160,3 +177,64 @@ def test_emulation_matches_pallas_grads(pono_c):
         np.testing.assert_allclose(a.numpy(), b, rtol=0,
                                    atol=2e-3 * float(np.abs(b).max()),
                                    err_msg=name)
+
+
+def emulated_fwd(f3, g3, v, qv, kv, w, s_split="3xtf32", pv_split="3xtf32"):
+    """shift9_core_plain's function with S3 issued as s_split and P V as
+    pv_split: (o, lse)."""
+    s3 = _mm(f3, g3.transpose(1, 2), s_split)
+    logits = S._logits(S._shift_sum(s3, w), qv, kv)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1)
+    return _mm(p, v, pv_split) / l[..., None], m[..., 0] + torch.log(l)
+
+
+def _fwd_args(f, g, v, pono_c):
+    """(f3, g3, v, qv, kv, w) of the forward kernel from raw features."""
+    f3, g3, qv, kv = S.shift9_inputs(torch.from_numpy(f), torch.from_numpy(g),
+                                     TAU, pono_c)
+    return f3, g3, torch.from_numpy(v), qv, kv, f.shape[2]
+
+
+@pytest.fixture(scope="module", params=[
+    (name, pono_c) for name in sorted(SHAPES) for pono_c in (True, False)],
+    ids=lambda p: f"{p[0]}-pono_c={p[1]}")
+def fwd_case(request):
+    """The forward's arguments and shift9_core_plain's outputs."""
+    name, pono_c = request.param
+    args = _fwd_args(*_features(*SHAPES[name], seed=5), pono_c)
+    return args, S.shift9_core_plain(*args)
+
+
+def _fwd_errs(got, want):
+    return [float((a - b).abs().max()) for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("split", ["3xtf32", "bf16x3"])
+def test_fwd_split_holds_fwd_tol(fwd_case, split):
+    args, want = fwd_case
+    eo, el = _fwd_errs(emulated_fwd(*args, s_split=split, pv_split=split),
+                       want)
+    assert eo <= 1e-4 and el <= 1e-3, (split, eo, el)
+
+
+@pytest.mark.parametrize("s_split,pv_split", [("1xtf32", "1xtf32"),
+                                              ("3xtf32", "1xtf32")])
+def test_fwd_one_tf32_pass_does_not(fwd_case, s_split, pv_split):
+    args, want = fwd_case
+    eo, _ = _fwd_errs(emulated_fwd(*args, s_split=s_split,
+                                   pv_split=pv_split), want)
+    assert eo > 1e-4, eo
+
+
+@pytest.mark.parametrize("pono_c", [True, False])
+def test_fwd_emulation_matches_pallas(pono_c):
+    """The emulated forward against the JAX package's Pallas forward at a
+    size its blocks take whole (tests/test_torch_shift9.py's shapes)."""
+    f, g, v = _features(2, 16, 8, 16, 3, seed=6)
+    got, _ = emulated_fwd(*_fwd_args(f, g, v, pono_c))
+    want = j_attend_shift9(jnp.asarray(f), jnp.asarray(g), jnp.asarray(v),
+                           TAU, pono_c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=3e-4)
