@@ -19,6 +19,10 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
 - the tool twins at their defaults: cocosnet_tpu_torch/tools/ab_dw.py and
   cocosnet_tpu_torch/tools/bench_corr.py (the large-descriptor correlation
   kernels' path);
+- the command-line twins, cli/train.py (batch 8; then --D_steps_per_G 2;
+  then --continue_train) and cli/test.py (batch 6 on the saved state), on
+  a synthetic ADE20k tree made from a seed: checkpoints written and loaded
+  bit for bit, the test twin's output equal to make_inference_step's;
 checking on each path that every kernel of that path was launched as often
 as the routing predicts.
 
@@ -48,6 +52,7 @@ import time
 from unittest import mock
 
 import torch
+from PIL import Image as PILImage
 
 # published peaks of one H100 SXM (dense): bytes/s of HBM3, f32 FLOP/s
 # outside the tensor cores, bf16 and TF32 FLOP/s on the tensor cores
@@ -1518,6 +1523,171 @@ def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps) -> dict:
     return launches
 
 
+def entry_twins(L) -> None:
+    """Phase 7: the two command-line twins, in-process, at flagship width
+    (256 px, ngf 64, ndf 64, 151 classes, bf16 policy) on a synthetic
+    ADE20k tree made from a seed (24 training and 12 validation photos at
+    384 x 288, so the resize and the random crop run):
+    - the train twin (cli/train.py) with bench.py's training flags at batch
+      8 for one epoch, then under --D_steps_per_G 2, then the first run
+      resumed by --continue_train for a second epoch: finite losses,
+      state_latest/ and state_<epoch>/ written, the shift9 kernels launched
+      once per G step and on no D-only step, the step counter and iter.txt
+      carried over;
+    - the test twin (cli/test.py) at batch 6 on the resumed run's nets
+      with weights at unit signal scale, saved as state_cond/: its weights
+      bit for bit the saved ones, the grids written, each forward kernel
+      launched its per-forward count times the batches, and the first
+      batch's fake_image, whose std is above 0.05, equal to
+      make_inference_step on the same batch and nets within 1e-6;
+    printing the train twin's s/step and the test twin's images/s with the
+    host pipeline."""
+    import shutil
+    import statistics
+    import tempfile
+    from cocosnet_tpu_torch.cli import test as TTEST
+    from cocosnet_tpu_torch.cli import train as TTRAIN
+    from cocosnet_tpu_torch.data import synthetic as SYN
+    from cocosnet_tpu_torch.data.loader import create_dataloader, to_device
+    from cocosnet_tpu_torch.train import checkpoints as CK
+    from cocosnet_tpu_torch.train.steps import make_inference_step
+    base = tempfile.mkdtemp(prefix="cocosnet_twins_")
+    try:
+        root = os.path.join(base, "ade")
+        SYN.make_ade20k_tree(root, n_train=24, n_val=12)
+        print(f"phase 7 works under {base}: "
+              f"{shutil.disk_usage(base).free / 2**30:.0f} GiB free",
+              flush=True)
+        ck = os.path.join(base, "checkpoints")
+        flags = ["--dataset_mode", "ade20k", "--dataroot", root,
+                 "--use_attention", "--maskmix", "--warp_mask_losstype",
+                 "direct", "--PONO", "--PONO_C", "--checkpoints_dir", ck,
+                 "--output_dir", os.path.join(base, "output"),
+                 "--nThreads", "4"]
+        train_flags = flags + [
+            "--batchSize", "8", "--niter", "1", "--niter_decay", "0",
+            "--weight_mask", "100.0", "--use_ema", "--vgg_normal_correct",
+            "--save_epoch_freq", "1", "--print_freq", "8",
+            "--display_freq", "16"]
+        counted = _counted()
+        per_step = TRAIN_LAUNCHES[(3, "kernels")]
+        runs, step_s = {}, []
+        for name, extra in (("twin", []),
+                            ("twin_d2", ["--D_steps_per_G", "2"]),
+                            ("twin resumed", ["--continue_train",
+                                              "--niter", "2"])):
+            _zero_counts(counted)
+            run = TTRAIN.main(train_flags + ["--name", name.split()[0]]
+                              + extra)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counted.items()}
+            want = {k: n * run.g_steps for k, n in per_step.items()}
+            print(f"train twin {name}: {run.g_steps} G steps, "
+                  f"{run.d_steps} D-only steps, launches {launches}",
+                  flush=True)
+            _check(launches == want and run.g_steps == (2 if extra[:1] == [
+                "--D_steps_per_G"] else 3) and run.d_steps == (
+                    1 if extra[:1] == ["--D_steps_per_G"] else 0),
+                   f"train twin {name}: the shift9 kernels once per G step "
+                   f"and on no D-only step ({want})")
+            _check(all(map(lambda v: v == v and abs(v) < float("inf"),
+                           run.losses.values())),
+                   f"train twin {name}: last losses finite: " + ", ".join(
+                       f"{k} {v:.4g}" for k, v in sorted(run.losses.items())))
+            step_s += run.step_seconds[1:]
+            runs[name] = run
+            # each state_<label>/ holds every net, the EMA shadows and both
+            # Adam states: 2.6 GB at this width
+            epoch = "2" if extra[:1] == ["--continue_train"] else "1"
+            run_dir = os.path.join(ck, name.split()[0])
+            files = set(os.listdir(os.path.join(run_dir, "state_latest"))) \
+                & set(os.listdir(os.path.join(run_dir, f"state_{epoch}")))
+            _check(files == {*CK.NET_FILES.values(), *CK.EMA_FILES.values(),
+                             CK.OPTIMIZER_FILE},
+                   f"train twin {name}: state_latest/ and state_{epoch}/ "
+                   f"hold {sorted(files)}")
+            if name == "twin_d2":
+                shutil.rmtree(run_dir)
+        with open(os.path.join(ck, "twin", "iter.txt")) as f:
+            record = f.read().split()
+        _check(runs["twin resumed"].state.step == 6 and record == ["3", "0"],
+               f"--continue_train resumed at epoch 2 from iter.txt and "
+               f"state_latest: step {runs['twin resumed'].state.step} == 6, "
+               f"iter.txt {record} == ['3', '0']")
+        print(f"train twin batch 8: {statistics.median(step_s):.4f} s/step "
+              f"(median of {len(step_s)} steps after each run's first, G "
+              f"and D-only; host clock over the loop, the wait for the "
+              f"loader included, to the losses on the host)", flush=True)
+
+        # the test twin reads weights at unit signal scale (6 steps from
+        # the init the fakes are near flat), saved by the port as
+        # state_cond/
+        trained = runs["twin resumed"].nets
+        g = torch.Generator().manual_seed(7)
+        condition_weights(trained.corr, g, "cuda")
+        condition_weights(trained.gen, g, "cuda")
+        CK.save_state(trained.opt, runs["twin resumed"].state, trained,
+                      "cond")
+        _zero_counts(counted)
+        test = TTEST.main(flags + ["--name", "twin", "--batchSize", "6",
+                                   "--which_epoch", "cond"])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counted.items()}
+        want = {k: n * test.batches
+                for k, n in INFERENCE_LAUNCHES[3].items()}
+        print(f"test twin: {test.batches} batches, launches {launches}",
+              flush=True)
+        _check(test.batches == 2 and test.images == 12 and launches == want,
+               f"test twin: 12 images in 2 batches of 6, each forward "
+               f"kernel launched its count times the batches {want}")
+        saved = os.path.join(ck, "twin", "state_cond")
+        for net, fname in (("gen", "net_G.pth"), ("corr", "net_Corr.pth")):
+            disk = torch.load(os.path.join(saved, fname), map_location="cpu",
+                              weights_only=True)
+            got = getattr(test.nets, net).state_dict()
+            live = getattr(trained, net).state_dict()
+            _check(got.keys() == disk.keys() == live.keys() and all(
+                torch.equal(got[k].cpu(), disk[k])
+                and torch.equal(got[k], live[k]) for k in got),
+                f"test twin's {net}: {len(got)} tensors bit for bit the "
+                f"saved {fname} and the live conditioned weights")
+        for i in range(test.batches):
+            size = PILImage.open(os.path.join(
+                base, "output", "test", "twin", f"{i}.png")).size
+            _check(size == (6 * 256, 3 * 256),
+                   f"test twin grid {i}.png {size} (label, exemplar and "
+                   f"output rows of 6)")
+        arrays, _ = to_device(test.first_batch, test.nets.device)
+        again = make_inference_step(test.nets)(arrays)["fake_image"]
+        err = float((again.float().cpu()
+                     - torch.from_numpy(test.first_fake)).abs().max())
+        std = float(test.first_fake.std())
+        _check(tuple(again.shape) == (6, 256, 256, 3) and err <= 1e-6
+               and bool(torch.isfinite(again).all()) and std > 0.05,
+               f"test twin's first fake_image vs make_inference_step on the "
+               f"same batch and nets: max err {err:.3g} <= 1e-6; the "
+               f"output carries signal (std {std:.3f} > 0.05)")
+        print(f"test twin batch 6: {test.images / test.seconds:.2f} images/s "
+              f"including the host pipeline ({test.images} images in "
+              f"{test.seconds:.2f} s, the first batch included)", flush=True)
+        # its parts: the loader alone (decode, transforms, pairing on the
+        # host), and the step alone on the first batch, already on the card
+        t = time.perf_counter()
+        n = sum(len(b["path"]) for b in create_dataloader(test.nets.opt))
+        load_s = time.perf_counter() - t
+        step = make_inference_step(test.nets)
+        fwd_ms = time_ms(lambda: step(arrays), runs=5)
+        print(f"test twin's parts: the loader alone {n / load_s:.2f} "
+              f"images/s ({n} images in {load_s:.3f} s); "
+              f"make_inference_step at batch 6 {6e3 / fwd_ms:.2f} images/s "
+              f"({fwd_ms:.2f} ms a batch, CUDA events, 5 runs); the rest of "
+              f"the twin's time is the copies, the fake's trip to the host "
+              f"and the PNG grids", flush=True)
+    finally:
+        L.set_compute_dtype(None)
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA device: this smoke test runs only on a GPU")
@@ -1670,6 +1840,9 @@ def main() -> None:
            and runs["bench_corr"]["attend_corr_bigc_backward"] > 0,
            f"bench_corr launched the large-descriptor kernels "
            f"{runs['bench_corr']}")
+
+    # phase 7: the command-line twins on a synthetic ADE20k tree
+    entry_twins(L)
 
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)

@@ -1,0 +1,105 @@
+"""Batch inference CLI: the twin of the repository's test.py, flag for flag
+(reference test.py). From the repository root:
+
+  python -m cocosnet_tpu_torch.cli.test --name ade20k --dataset_mode ade20k \\
+      --dataroot ./imgs/ade20k --batchSize 6 --use_attention --maskmix \\
+      --warp_mask_losstype direct --PONO --PONO_C
+
+Loads G and Corr from <checkpoints_dir>/<name>/state_<which_epoch>/ (the
+train twin's checkpoint) or from the reference's flat
+<which_epoch>_net_{G,Corr}.pth files, and writes per batch the label /
+exemplar / output comparison grid output/test/<name>/<i>.png, or with
+--save_per_img each output as output/test_per_img/<name>/<image name>, as
+test.py does (reference test.py:27-69). Runs on the GPU; --platform cpu
+runs the kernels' plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+from cocosnet_tpu_torch import pix2pix as P
+from cocosnet_tpu_torch.cli import common
+from cocosnet_tpu_torch.config import parse_options
+from cocosnet_tpu_torch.data.loader import create_dataloader, to_device
+from cocosnet_tpu_torch.train import checkpoints as C
+from cocosnet_tpu_torch.train.steps import make_inference_step
+from cocosnet_tpu_torch.utils import visuals as V
+
+
+@dataclasses.dataclass
+class InferenceRun:
+    """What a run did: images and batches through the loop, its seconds
+    (host clock, the host pipeline included), the nets it ran, and the
+    first batch (as the loader gave it) with its fake_image."""
+    images: int
+    batches: int
+    seconds: float
+    nets: P.Pix2PixNets
+    first_batch: Optional[Dict] = None
+    first_fake: Optional[np.ndarray] = None
+
+
+def main(argv=None) -> InferenceRun:
+    opt = parse_options(argv, is_train=False)
+    device = common.device_for(opt.platform)
+    common.set_numerics(opt)
+
+    dataloader = create_dataloader(opt)
+    nets = P.Pix2PixNets(opt, device=device, seed=opt.seed)
+
+    ckpt_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    loaded = C.load_inference(opt, nets, opt.which_epoch)
+    if loaded is not None:
+        print(loaded)
+    elif opt.allow_random_weights:
+        print(f"WARNING: no checkpoint found under {ckpt_dir}; "
+              "running with random weights (--allow_random_weights)")
+    else:
+        raise SystemExit(
+            f"No checkpoint found under {ckpt_dir} (tried "
+            f"state_{opt.which_epoch} and torch "
+            f"{opt.which_epoch}_net_G/Corr.pth). Pass "
+            f"--allow_random_weights to run with random weights anyway.")
+
+    inference_step = make_inference_step(nets)
+    save_root = common.save_root(opt)
+    run = InferenceRun(images=0, batches=0, seconds=0.0, nets=nets)
+    t_start = time.perf_counter()
+    for i, batch in enumerate(dataloader):
+        print(f"{i} / {len(dataloader)}")
+        if i * opt.batchSize >= opt.how_many:
+            break
+        arrays, paths = to_device(batch, device)
+        fake = common.host(inference_step(arrays)["fake_image"])
+        if i == 0:
+            run.first_batch, run.first_fake = batch, fake
+        run.images += fake.shape[0]
+        run.batches += 1
+
+        if opt.save_per_img:
+            root = os.path.join(save_root, "test_per_img", opt.name)
+            imgs = (fake + 1.0) / 2.0
+            for j in range(imgs.shape[0]):
+                V.save_image(imgs[j], os.path.join(
+                    root, os.path.basename(paths["path"][j])))
+        else:
+            imgs = np.concatenate([common.label_visual(batch["label"]),
+                                   batch["ref"], fake], axis=0)
+            imgs = (imgs + 1.0) / 2.0
+            V.save_image_grid(
+                imgs, os.path.join(save_root, "test", opt.name, f"{i}.png"),
+                nrow=fake.shape[0])
+    run.seconds = time.perf_counter() - t_start
+    print(f"processed {run.images} images in {run.seconds:.2f}s "
+          f"({run.images / run.seconds:.2f} img/s incl. host pipeline)")
+    return run
+
+
+if __name__ == "__main__":
+    main()

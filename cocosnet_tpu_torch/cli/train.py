@@ -1,0 +1,190 @@
+"""Training CLI: the twin of the repository's train.py, flag for flag
+(reference train.py). From the repository root:
+
+  python -m cocosnet_tpu_torch.cli.train --name ade20k --dataset_mode ade20k \\
+      --dataroot <path> --niter 100 --niter_decay 100 --use_attention \\
+      --maskmix --warp_mask_losstype direct --weight_mask 100.0 --PONO \\
+      --PONO_C --batchSize 32 --vgg_normal_correct
+
+The structure of reference train.py:27-122: per iteration the fused G + D
+step (train.steps.make_train_step), or under --D_steps_per_G > 1 a
+D-only step on the last fake where i % D_steps_per_G != 0
+(make_d_step); loss lines (with img/s) to stdout and loss_log.txt every
+--print_freq images, visual grids every --display_freq, `latest` every
+--save_latest_freq with iter.txt, `latest` and `<epoch>` at the epoch ends
+(train.checkpoints: torch.save state dicts under the reference's names),
+the learning rates of train.state.lrs_for_epoch each epoch, and a NaN loss
+saves `nan_debug` and stops. --continue_train --which_epoch resumes from
+that checkpoint and from iter.txt. Runs on the GPU; --platform cpu runs
+the kernels' plain versions on the CPU. Single process: --distributed,
+--mesh_data / --mesh_model > 1 and --steps_per_dispatch > 1 (the JAX
+package's multi-step dispatch) are refused. The nets hold their weights,
+so no batch is taken before the loop to build them (train.py takes one,
+which draws a shuffle): the first epoch runs the loader's first shuffle,
+as the reference's train.py does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from cocosnet_tpu_torch import pix2pix as P
+from cocosnet_tpu_torch.cli import common
+from cocosnet_tpu_torch.config import parse_options, save_options
+from cocosnet_tpu_torch.data.loader import create_dataloader, to_device
+from cocosnet_tpu_torch.train import checkpoints as C
+from cocosnet_tpu_torch.train import state as S
+from cocosnet_tpu_torch.train import steps as ST
+from cocosnet_tpu_torch.utils import visuals as V
+from cocosnet_tpu_torch.utils.iter_counter import TrainProgress
+from cocosnet_tpu_torch.utils.logging import print_current_errors
+from cocosnet_tpu_torch.utils.profiling import Throughput, maybe_trace
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What a run did: its G steps and D-only steps, the host seconds of
+    each iteration (from the losses of the one before on the host, or the
+    epoch's start, to its own: the logging and saving between them, the
+    wait for the loader, the copy and the device's work), the last losses,
+    the nets and the train state it ended with."""
+    g_steps: int
+    d_steps: int
+    step_seconds: List[float]
+    losses: Dict[str, float]
+    nets: P.Pix2PixNets
+    state: S.TrainState
+
+
+def check_loop_ported(opt) -> None:
+    """Raises on the loop options the twin does not run: it is one process
+    and takes one step a dispatch."""
+    bad = {k: v for k, v in (("steps_per_dispatch", opt.steps_per_dispatch),
+                             ("mesh_data", opt.mesh_data)) if v > 1}
+    if opt.distributed:
+        bad["distributed"] = True
+    if bad:
+        raise NotImplementedError(f"not ported yet: {bad}")
+
+
+def main(argv=None) -> TrainRun:
+    opt = parse_options(argv, is_train=True)
+    device = common.device_for(opt.platform)
+    check_loop_ported(opt)
+    common.set_numerics(opt)
+    save_options(opt, os.path.join(opt.checkpoints_dir, opt.name, "opt.json"))
+
+    dataloader = create_dataloader(opt)
+    progress = TrainProgress(opt, len(dataloader.dataset))
+    nets = P.Pix2PixNets(opt, device=device, seed=opt.seed)
+
+    # pretrained VGG for the perceptual losses
+    vgg = C.load_vgg(opt, nets)
+    if vgg is not None:
+        print(f"loaded VGG weights from {vgg}")
+    else:
+        print(f"WARNING: VGG weights not found at {opt.vgg_weights}; "
+              "perceptual losses use random features")
+
+    state = S.create_train_state(opt, nets)
+    if opt.continue_train:
+        try:
+            C.load_state(opt, state, nets, opt.which_epoch)
+            print(f"resumed train state from {opt.which_epoch}")
+        except FileNotFoundError as e:
+            print(f"could not resume ({e}); starting fresh")
+
+    train_step = ST.make_train_step(nets)
+    d_only_step = ST.make_d_step(nets) if opt.D_steps_per_G > 1 else None
+    throughput = Throughput()
+    save_root = common.save_root(opt)
+    run = TrainRun(g_steps=0, d_steps=0, step_seconds=[], losses={},
+                   nets=nets, state=state)
+
+    def save(label):
+        C.save_state(opt, state, nets, label)
+
+    def nan_bail(epoch):
+        save("nan_debug")
+        raise FloatingPointError(
+            f"loss went NaN at epoch {epoch}, iter {progress.epoch_iter} — "
+            f"state saved as 'nan_debug' for inspection; rerun with "
+            f"--compute_dtype f32 and/or a lower --lr")
+
+    last_fake = None
+    for epoch in progress.epochs():
+        progress.begin_epoch(epoch)
+        lr = S.lrs_for_epoch(opt, epoch)  # (lr_G, lr_D)
+        t0 = time.perf_counter()
+        for i, batch in enumerate(dataloader):
+            arrays, _ = to_device(batch, device)
+            events = progress.step()
+            trace_this = bool(opt.profile_dir) and epoch == 1 and i == 2
+            with maybe_trace(opt.profile_dir, trace_this):
+                if d_only_step is not None and i % opt.D_steps_per_G != 0 \
+                        and last_fake is not None:
+                    # D-only iteration (reference train.py:54-58)
+                    metrics = d_only_step(state, arrays, lr, last_fake)
+                    visuals = {}
+                    run.d_steps += 1
+                else:
+                    metrics, visuals = train_step(state, arrays, lr)
+                    last_fake = visuals["fake_image"]
+                    run.g_steps += 1
+            # one copy to the host for all the losses; it waits for the step
+            values = torch.stack(list(metrics.values())).float().cpu()
+            run.step_seconds.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            if bool(torch.isnan(values).any()):
+                nan_bail(epoch)
+            run.losses = dict(zip(metrics, values.tolist()))
+
+            if events.print_losses:
+                print_current_errors(
+                    opt, epoch, progress.epoch_iter,
+                    {**run.losses, "img/s": throughput.step(opt.batchSize)},
+                    progress.time_per_img)
+            if events.display_visuals and visuals:
+                try:
+                    _save_visuals(opt, batch, visuals, epoch,
+                                  progress.images_seen, save_root)
+                except OSError as err:
+                    print(err)
+            if events.save_latest:
+                print(f"saving the latest model (epoch {epoch}, "
+                      f"total_steps {progress.images_seen})")
+                save("latest")
+                progress.save_record()
+        progress.end_epoch()
+        if epoch % opt.save_epoch_freq == 0 or epoch == progress.final_epoch:
+            print(f"saving the model at the end of epoch {epoch}, "
+                  f"iters {progress.images_seen}")
+            save("latest")
+            save(str(epoch))
+
+    print("Training was successfully finished.")
+    return run
+
+
+def _save_visuals(opt, batch, visuals, epoch, step, save_root) -> None:
+    """label / exemplar / warp / output / real rows, one column per sample
+    (train.py:278-299)."""
+    fake = common.host(visuals["fake_image"])
+    rows = [common.label_visual(batch["label"]), batch["ref"]]
+    if visuals.get("warp_out") is not None:
+        rows.append(common.host(visuals["warp_out"]))
+    rows += [fake, batch["image"]]
+    imgs = (np.concatenate(rows, axis=0) + 1.0) / 2.0
+    V.save_image_grid(
+        imgs, os.path.join(save_root, "training", opt.name,
+                           f"{epoch}_{step}.png"), nrow=fake.shape[0])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,17 @@
 """Typed, immutable configuration: the port's own copy of cocosnet_tpu's
 `Options` (same field names and defaults, so one set of flags configures
-both packages), with `finalize` and `test_defaults`. CLI parsing is not
-ported yet.
+both packages) and of its command-line parser: one flag per field, named
+as in the reference CLI, parsed in three stages (the dataset's defaults,
+then the saved opt.json under --load_from_opt_file, then the explicit
+flags, which win), with `save_options` / `load_options` for opt.json.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+import os
 import sys
 from dataclasses import dataclass
 
@@ -173,6 +178,113 @@ class Options:
     def corr_n(self) -> int:
         hw = self.feature_hw
         return hw * hw
+
+
+# Per-dataset defaults, each dataset's modify_commandline_options
+_DATASET_DEFAULTS = {
+    # ade20k_dataset.py:12-25
+    "ade20k": dict(preprocess_mode="resize_and_crop", crop_size=256,
+                   display_winsize=256, label_nc=150, contain_dontcare_label=True),
+    # celebahq_dataset.py:14-29
+    "celebahq": dict(preprocess_mode="resize_and_crop", crop_size=256,
+                     display_winsize=256, label_nc=19, contain_dontcare_label=False,
+                     no_pairing_check=True),
+    # celebahqedge_dataset.py:15-30
+    "celebahqedge": dict(preprocess_mode="resize_and_crop", crop_size=256,
+                         display_winsize=256, label_nc=15, contain_dontcare_label=False,
+                         no_pairing_check=True),
+    # deepfashion_dataset.py:16-31
+    "deepfashion": dict(preprocess_mode="resize_and_crop", crop_size=256,
+                        display_winsize=256, label_nc=20, contain_dontcare_label=False,
+                        no_pairing_check=True),
+    # flickr_dataset.py:9-23
+    "flickr": dict(preprocess_mode="resize_and_crop", crop_size=256,
+                   display_winsize=256, label_nc=150, contain_dontcare_label=True),
+}
+
+_FIELD_NAMES = {f.name for f in dataclasses.fields(Options)}
+_BOOL_FIELDS = {f.name for f in dataclasses.fields(Options) if f.type in ("bool", bool)}
+# derived fields, and what --load_from_opt_file does not take from opt.json
+_DERIVED = ("isTrain", "semantic_nc", "epoch", "down")
+_NOT_LOADED = _DERIVED + ("phase", "load_from_opt_file", "continue_train",
+                          "which_epoch")
+
+
+def build_parser(is_train: bool) -> argparse.ArgumentParser:
+    """argparse parser with one flag per Options field, reference-compatible
+    names; booleans are store_true flags, as in the reference."""
+    p = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter, allow_abbrev=False)
+    for f in dataclasses.fields(Options):
+        if f.name in _DERIVED:
+            continue
+        flag = "--" + f.name
+        if f.name in _BOOL_FIELDS:
+            p.add_argument(flag, action="store_true", default=f.default)
+        elif f.type in ("int", int):
+            p.add_argument(flag, type=int, default=f.default)
+        elif f.type in ("float", float):
+            p.add_argument(flag, type=float, default=f.default)
+        else:
+            p.add_argument(flag, type=str, default=f.default)
+    return p
+
+
+def _apply_phase_defaults(ns: argparse.Namespace, is_train: bool,
+                          explicitly_set: set) -> None:
+    """load_size defaults to 286 (train) / 256 (test) for every dataset
+    (e.g. ade20k_dataset.py:15-19); the test phase forces serial batches,
+    no flip and a 256 crop unless given (test_options.py:16-21)."""
+    if "load_size" not in explicitly_set:
+        ns.load_size = 286 if is_train else 256
+    if not is_train:
+        ns.serial_batches = True
+        ns.no_flip = True
+        ns.phase = "test"
+        if "crop_size" not in explicitly_set:
+            ns.crop_size = 256
+        if "display_winsize" not in explicitly_set:
+            ns.display_winsize = 256
+
+
+def parse_options(argv=None, is_train: bool = True) -> Options:
+    """Options from `argv` (sys.argv[1:] when None) for the train or the
+    test phase (base_options.py:97-126's three-stage parse)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    explicitly_set = {a.lstrip("-").split("=")[0] for a in argv if a.startswith("--")}
+
+    parser = build_parser(is_train)
+    pre, _ = parser.parse_known_args(argv)
+    for k, v in _DATASET_DEFAULTS.get(pre.dataset_mode, {}).items():
+        parser.set_defaults(**{k: v})
+    if pre.load_from_opt_file:
+        # base_options.py:119-122,160-166: saved options become the defaults
+        saved = load_options(os.path.join(pre.checkpoints_dir, pre.name,
+                                          "opt.json"))
+        for k in _FIELD_NAMES - set(_NOT_LOADED):
+            parser.set_defaults(**{k: getattr(saved, k)})
+    ns = parser.parse_args(argv)
+    _apply_phase_defaults(ns, is_train, explicitly_set)
+
+    d = vars(ns)
+    d["isTrain"] = is_train
+    d["phase"] = "train" if is_train else "test"
+    return finalize(Options(**{k: v for k, v in d.items() if k in _FIELD_NAMES}))
+
+
+def save_options(opt: Options, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(opt), f, indent=2, default=str)
+
+
+def load_options(path: str) -> Options:
+    with open(path) as f:
+        d = json.load(f)
+    d = {k: v for k, v in d.items() if k in _FIELD_NAMES}
+    if d.get("max_dataset_size") is None:
+        d["max_dataset_size"] = sys.maxsize
+    return finalize(Options(**d))
 
 
 def finalize(opt: Options) -> Options:

@@ -37,7 +37,7 @@ _PORTED = dict(mask_noise=False, noise_for_mask=False,
                use_coordconv=False, warp_patch=False, warp_bilinear=False,
                show_corr=False, warp_cycle_w=0.0, adaptor_res_deeper=False,
                adaptor_nonlocal=False, adaptor_se=False, mesh_model=1,
-               D_cam=0.0, D_steps_per_G=1, remat=False, remat_full=False,
+               D_cam=0.0, remat=False, remat_full=False,
                netD="multiscale", netD_subarch="n_layer")
 
 

@@ -1,11 +1,13 @@
 """The fused train step: generator forward + its loss terms + Adam update on
 netG + netCorr, the EMA shadows, then the discriminator update on the same
-fake, detached.
+fake, detached; the discriminator-only step of --D_steps_per_G > 1; and
+the inference step.
 
-Counterpart of cocosnet_tpu/train/steps.py `make_train_step` (the
-reference's per-iteration schedule, train.py:54-58, pix2pix_trainer.py:
-52-74). The step runs inside nn.layers.training(), where the convs route
-as the JAX package's training trace routes them: library convs by default,
+Counterpart of cocosnet_tpu/train/steps.py `make_train_step`, `make_d_step`
+and `make_inference_step` (the reference's per-iteration schedule,
+train.py:54-58, pix2pix_trainer.py:52-74). The train step runs inside
+nn.layers.training(), where the convs route as the JAX package's training
+trace routes them: library convs by default,
 conv3x3_fused forward and backward under COCOSNET_FUSED_CONV_TRAIN=1, the
 dW kernel under COCOSNET_PALLAS_DW=1 or =all (nn/layers.conv2d); and with
 gen, corr and disc in train mode, so each spectral norm advances
@@ -84,3 +86,46 @@ def make_train_step(nets: P.Pix2PixNets):
         return losses, visuals
 
     return train_step
+
+
+def make_d_step(nets: P.Pix2PixNets):
+    """step(state, batch, lr, fake_image) -> {"D_Fake", "D_real"}: the
+    discriminator-only update of the iterations where --D_steps_per_G > 1
+    skips the generator, on the last G step's fake, detached (reference
+    train.py:54-58, pix2pix_trainer.py:64-74). D runs in train mode, so its
+    spectral u/v advance once; Adam steps opt_d at lr_D; state.step counts
+    the step."""
+    def d_step(state: S.TrainState, batch, lr,
+               fake_image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        lr_d = float(lr[1])
+        data = P.preprocess_input(nets.opt, batch, device=nets.device)
+        nets.set_train(True)
+        try:
+            with L.training():
+                d_losses = P.compute_discriminator_losses(nets, data,
+                                                          fake_image)
+                _apply_grads(state.opt_d, S.d_parameters(nets),
+                             sum(d_losses.values()), lr_d)
+        finally:
+            nets.set_train(False)
+        state.step += 1
+        return {k: v.detach() for k, v in d_losses.items()}
+
+    return d_step
+
+
+def make_inference_step(nets: P.Pix2PixNets):
+    """step(batch, rng=None) -> {"fake_image", "warp_out"} for one loader
+    batch, under torch.inference_mode(). The nets hold their weights, so
+    the step takes no variables; rng would feed only --noise_for_mask,
+    which pix2pix.check_ported refuses."""
+    opt = nets.opt
+
+    def inference_step(batch, rng=None) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            data = P.preprocess_input(opt, batch, device=nets.device)
+            out = P.inference(nets, data)
+            return {"fake_image": out["fake_image"],
+                    "warp_out": out.get("warp_out")}
+
+    return inference_step

@@ -7,6 +7,8 @@ there is no CUDA device. On a GPU machine, from the repository root
 
 (chip_smoke.py holds the same kernels at the flagship shapes.)"""
 
+import os
+
 import pytest
 import torch
 
@@ -541,3 +543,49 @@ def test_discriminator_downsample_gradient_matches_the_cpu(gen, shape):
     (yc, gc), (yg, gg) = outs
     torch.testing.assert_close(yg, yc, rtol=0, atol=1e-6)
     torch.testing.assert_close(gg, gc, rtol=0, atol=1e-6)
+
+
+def test_test_twin_on_the_card_matches_its_cpu_run(gen, tmp_path):
+    """cli/test.py at 64 px (ngf 8, label_nc 12, f32) on a synthetic ADE20k
+    tree, from weights at unit signal scale saved as the reference's flat
+    <label>_net_{G,Corr}.pth: --platform gpu against --platform cpu, every
+    output within 5e-4 (the CPU parity tests' slice tolerance), the card
+    run through the shift9 kernel once a batch."""
+    from cocosnet_tpu_torch import config as TCFG
+    from cocosnet_tpu_torch import pix2pix as TP
+    from cocosnet_tpu_torch.cli import test as TTEST
+    from cocosnet_tpu_torch.data import synthetic as SYN
+    from cocosnet_tpu_torch.nn import layers as TL
+    from torch_fixtures import condition
+    root = str(tmp_path / "ade")
+    SYN.make_ade20k_tree(root, n_train=2, n_val=4, size=(80, 72),
+                         n_classes=13, block=8)
+    argv = ["--dataroot", root, "--label_nc", "12", "--crop_size", "64",
+            "--load_size", "64", "--ngf", "8", "--use_attention",
+            "--maskmix", "--warp_mask_losstype", "direct", "--PONO",
+            "--PONO_C", "--batchSize", "2", "--compute_dtype", "f32",
+            "--checkpoints_dir", str(tmp_path / "ck"), "--name", "card",
+            "--output_dir", str(tmp_path / "out")]
+    nets = TP.Pix2PixNets(TCFG.parse_options(argv, is_train=False),
+                          device="cpu")
+    condition(nets.gen, 1)
+    condition(nets.corr, 2)
+    os.makedirs(tmp_path / "ck" / "card")
+    torch.save(nets.gen.state_dict(),
+               tmp_path / "ck" / "card" / "latest_net_G.pth")
+    torch.save(nets.corr.state_dict(),
+               tmp_path / "ck" / "card" / "latest_net_Corr.pth")
+    policy = TL.get_compute_dtype()
+    try:
+        n = S.attend_shift9.launches
+        card = TTEST.main(argv + ["--platform", "gpu"])
+        assert S.attend_shift9.launches == n + card.batches
+        cpu = TTEST.main(argv + ["--platform", "cpu"])
+    finally:
+        TL.set_compute_dtype(policy)
+    assert card.batches == cpu.batches == 2
+    assert card.nets.device.type == "cuda"
+    assert float(cpu.first_fake.std()) > 0.05  # the output carries signal
+    torch.testing.assert_close(torch.from_numpy(card.first_fake),
+                               torch.from_numpy(cpu.first_fake), rtol=0,
+                               atol=5e-4)

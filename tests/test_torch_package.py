@@ -73,7 +73,11 @@ def test_env_switches_are_the_jax_packages():
         assert f'"{name}"' in src, name
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from cocosnet_tpu_torch.cli import test as TTEST
+    from cocosnet_tpu_torch.cli import train as TTRAIN
+    from cocosnet_tpu_torch.data import synthetic as SYN
+    from cocosnet_tpu_torch.nn import layers as TL
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12,
                              contain_dontcare_label=True, crop_size=64,
@@ -83,6 +87,28 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         TP.preprocess_input(opt, {}, device=None)
     TP.Pix2PixNets(opt, device="cpu")  # the explicit CPU request is taken
+    # the two command-line twins: the card unless --platform cpu
+    root = str(tmp_path / "ade")
+    SYN.make_ade20k_tree(root, n_train=2, n_val=2, size=(64, 64),
+                         n_classes=13, block=8)
+    argv = ["--dataroot", root, "--label_nc", "12", "--crop_size", "64",
+            "--load_size", "64", "--ngf", "8", "--ndf", "8", "--PONO",
+            "--batchSize", "2", "--checkpoints_dir", str(tmp_path / "ck"),
+            "--output_dir", str(tmp_path / "out"), "--compute_dtype", "f32",
+            "--nThreads", "0"]
+    for main in (TTEST.main, TTRAIN.main):
+        for platform in ([], ["--platform", "gpu"], ["--platform", "cuda"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                main(argv + platform)
+    policy = TL.get_compute_dtype()
+    try:
+        run = TTRAIN.main(argv + ["--platform", "cpu", "--niter", "1",
+                                  "--niter_decay", "0"])
+        assert run.g_steps == 1 and run.nets.device.type == "cpu"
+        run = TTEST.main(argv + ["--platform", "cpu"])
+        assert run.images == 2 and run.nets.device.type == "cpu"
+    finally:
+        TL.set_compute_dtype(policy)
 
 
 def test_unported_options_raise():

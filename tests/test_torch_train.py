@@ -506,7 +506,7 @@ def test_conv_kernel_entries_refuse_grad():
 
 @pytest.mark.parametrize("flag", [dict(mask_noise=True),
                                   dict(noise_for_mask=True),
-                                  dict(D_cam=1.0), dict(D_steps_per_G=2),
+                                  dict(D_cam=1.0), dict(remat_full=True),
                                   dict(remat=True),
                                   dict(weight_domainC=1.0, domain_rela=True)])
 def test_unported_training_options_raise(flag):
