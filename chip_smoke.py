@@ -23,14 +23,21 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   then --continue_train) and cli/test.py (batch 6 on the saved state), on
   a synthetic ADE20k tree made from a seed: checkpoints written and loaded
   bit for bit, the test twin's output equal to make_inference_step's;
+- the serving path: tools/serve.make_serve_step captured as a CUDA graph
+  at match_kernel 3 batch 6 and 1 and match_kernel 1 batch 6 (launches on
+  the capture call, replays with the eager forward's bits, graph against
+  eager ms and profiles), the serve twin's files against the eager step,
+  and tools/bench_serve against the serve twin (batch 6 all at once, npy
+  and png; batch 1 at a fixed rate);
 checking on each path that every kernel of that path was launched as often
 as the routing predicts.
 
     python3 chip_smoke.py
 
 Prints the card's name and power limit, one line per check, a `kernels`
-JSON line (per kernel: its main path and its launches there, max error
-against its plain version, its time, the plain version's, the library
+JSON line (per kernel: its main path and its launches there, its
+launches on the serve graph's capture call, max error against its plain
+version, its time, the plain version's, the library
 call's and the least time the card could take; the correlation kernels'
 library call is one SDPA call, on the unfolded 3x3 descriptors for the
 shift9 pair), the device time of each
@@ -136,6 +143,11 @@ def _maxerr(a, b) -> float:
 
 def _outs(r):
     return r if isinstance(r, tuple) else (r,)
+
+
+def _phase_done(n: int, t_start: float) -> None:
+    print(f"phase {n} done at {time.perf_counter() - t_start:.0f} s",
+          flush=True)
 
 
 # ------------------------------------------------------------------ phase 2
@@ -1084,14 +1096,51 @@ def term_gradients(P, L, nets, batch) -> dict:
     return grads
 
 
-def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
+def cpu_train_reference(P, cfg, L, TS, ST, g, match_kernel) -> dict:
+    """The plain versions' side of train_reference_check at `match_kernel`,
+    on the CPU under the route it is first called on: the weights at unit
+    signal scale and the batch, each loss term's gradient on each network,
+    then one train step (its losses, gradients, parameters and EMA shadows
+    before and after, spectral u/v) and a second step's losses. The routes
+    of one match_kernel compute the same function, so their card runs are
+    held to one reference."""
+    opt = train_opt(cfg, label_nc=12, crop_size=256, load_size=256,
+                    aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16,
+                    match_kernel=match_kernel)
+    batch = make_batch(g, 1, 128, 256, opt.semantic_nc)
+    cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
+    for net in cpu.modules():
+        condition_weights(net, g, "cpu")
+    # the forward advances the spectral u/v: every run restarts from here
+    start = [{k: v.clone() for k, v in m.state_dict().items()}
+             for m in cpu.modules()]
+    want_g = term_gradients(P, L, cpu, batch)
+    for sd, a in zip(start, cpu.modules()):
+        a.load_state_dict(sd)
+    ref = dict(opt=opt, batch=batch, start=start, want_g=want_g,
+               p0=_params(cpu), lr=TS.lrs_for_epoch(opt, 1))
+    cstate = TS.create_train_state(opt, cpu)
+    cstep = ST.make_train_step(cpu)
+    ref["want"], _ = cstep(cstate, batch, ref["lr"])
+    ref["cg"], ref["cp"] = _grads(cpu, cstate), _params(cpu)
+    ref["ema"] = {k: v.cpu().double() for k, v in cstate.ema.items()}
+    ref["uv"] = [{k: t.clone() for k, t in m.state_dict().items()
+                  if k.endswith(("weight_u", "weight_v"))}
+                 for m in cpu.modules()]
+    ref["want2"], _ = cstep(cstate, batch, ref["lr"])
+    return ref
+
+
+def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route,
+                          refs: dict):
     """The train step's gradients and two f32 train steps on the card (on
     `route`: at match_kernel 1 "kernels" or "library" for the correlation,
     library convs; at match_kernel 3 "kernels", library convs, or a conv
     route, "dw all" or "fused") against the same weights and batch through
-    the plain versions on the CPU, at reference_check's size (128 x 256,
-    ngf 16, ndf 16, 13 classes, batch 1: a size where the conv gates take
-    some convs, so the conv routes' counters move):
+    the plain versions on the CPU (cpu_train_reference, kept in refs by
+    match_kernel), at reference_check's size (128 x 256, ngf 16, ndf 16, 13
+    classes, batch 1: a size where the conv gates take some convs, so the
+    conv routes' counters move):
     - each loss term's gradient on each network it trains, at 2e-2
       relative L2: the f32 orders alone move them up to 7e-3 (the
       contextual loss's 1 - cos cancels, and 1/tau = 100 amplifies the
@@ -1110,21 +1159,16 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
       2e-5;
     and the second step's losses at rel 2e-2, as the CPU tests hold it."""
     from cocosnet_tpu_torch.tools import ab_dw as AB
-    opt = train_opt(cfg, label_nc=12, crop_size=256, load_size=256,
-                    aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16,
-                    match_kernel=match_kernel)
+    if match_kernel not in refs:
+        refs[match_kernel] = cpu_train_reference(P, cfg, L, TS, ST, g,
+                                                 match_kernel)
+    ref = refs[match_kernel]
+    opt, batch, lr = ref["opt"], ref["batch"], ref["lr"]
     tag = f"match_kernel {match_kernel} ({route} route)"
-    batch = make_batch(g, 1, 128, 256, opt.semantic_nc)
-    cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
-    for net in cpu.modules():
-        condition_weights(net, g, "cpu")
     gpu = P.Pix2PixNets(opt, device="cuda", seed=1)
-    for a, b in zip(cpu.modules(), gpu.modules()):
-        b.load_state_dict(a.state_dict())
-    # the forward advances the spectral u/v: both nets restart from here
-    start = [{k: v.clone() for k, v in m.state_dict().items()}
-             for m in cpu.modules()]
-    want_g = term_gradients(P, L, cpu, batch)
+    for sd, b in zip(ref["start"], gpu.modules()):
+        b.load_state_dict(sd)
+    want_g = ref["want_g"]
     got_g = term_gradients(P, L, gpu, batch)
     rels = {}
     for key in sorted(want_g):
@@ -1137,16 +1181,12 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
            f"{tag} each loss term's gradient on each network, card vs CPU, "
            f"relative L2 <= 2e-2: " + ", ".join(
                f"{term}/{net} {r:.2g}" for (net, term), r in rels.items()))
-    del want_g, got_g
-    for sd, a, b in zip(start, cpu.modules(), gpu.modules()):
-        a.load_state_dict(sd)
+    del got_g
+    for sd, b in zip(ref["start"], gpu.modules()):
         b.load_state_dict(sd)
-    p0 = _params(cpu)
-    lr = TS.lrs_for_epoch(opt, 1)
-    cstate, gstate = TS.create_train_state(opt, cpu), \
-        TS.create_train_state(opt, gpu)
-    cstep, gstep = ST.make_train_step(cpu), ST.make_train_step(gpu)
-    want, _ = cstep(cstate, batch, lr)
+    p0 = ref["p0"]
+    gstate = TS.create_train_state(opt, gpu)
+    gstep = ST.make_train_step(gpu)
     counted = _counted()
     _zero_counts(counted)
     res = []
@@ -1164,10 +1204,10 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
                                                                     ())
     _check(all(moved[k] for k in new), f"{tag}: the route's kernels "
            f"{new} ran")
-    _check_losses(got, want, 2e-3, f"{tag} small train step")
+    _check_losses(got, ref["want"], 2e-3, f"{tag} small train step")
 
-    cg, gg = _grads(cpu, cstate), _grads(gpu, gstate)
-    cp, gp = _params(cpu), _params(gpu)
+    cg, gg = ref["cg"], _grads(gpu, gstate)
+    cp, gp = ref["cp"], _params(gpu)
     for net in TRAINED:
         rel = _rel_l2(gg[net], cg[net])
         _check(rel <= 2e-2, f"{tag} small train step, {net} gradient "
@@ -1178,8 +1218,7 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
                f"relative L2 {upd:.3g} <= 0.1")
     for net in ("gen", "corr"):
         pre = net + "."
-        ce = {k: v.cpu().double() for k, v in cstate.ema.items()
-              if k.startswith(pre)}
+        ce = {k: v for k, v in ref["ema"].items() if k.startswith(pre)}
         ge = {k: gstate.ema[k].cpu().double() for k in ce}
         base = {k: p0[net][k[len(pre):]] for k in ce}
         ema = _rel_l2(ge, ce, base)
@@ -1187,19 +1226,17 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route):
                f"relative L2 {ema:.3g} <= 0.1")
 
     worst, count = 0.0, 0
-    for a, b in zip(cpu.modules(), gpu.modules()):
+    for uv, b in zip(ref["uv"], gpu.modules()):
         sb = b.state_dict()
-        for k, t in a.state_dict().items():
-            if k.endswith(("weight_u", "weight_v")):
-                worst = max(worst, _maxerr(sb[k].cpu(), t))
-                count += 1
+        for k, t in uv.items():
+            worst = max(worst, _maxerr(sb[k].cpu(), t))
+            count += 1
     _check(count > 0 and worst <= 2e-5,
            f"{tag} spectral u/v after the step ({count} vectors): max err "
            f"{worst:.3g} <= 2e-5")
 
-    want, _ = cstep(cstate, batch, lr)
     got, _ = gstep(gstate, batch, lr)
-    _check_losses(got, want, 2e-2, f"{tag} second small train step")
+    _check_losses(got, ref["want2"], 2e-2, f"{tag} second small train step")
 
 
 KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
@@ -1688,6 +1725,206 @@ def entry_twins(L) -> None:
         shutil.rmtree(base, ignore_errors=True)
 
 
+SERVE_FLAGS = ["--dataset_mode", "ade20k", "--use_attention", "--maskmix",
+               "--warp_mask_losstype", "direct", "--PONO", "--PONO_C",
+               "--nThreads", "4"]
+
+
+def serve_graphs(P, cfg, L, g) -> dict:
+    """Phase 8, first part: tools/serve.make_serve_step at flagship width
+    (bf16 policy, weights at unit signal scale) at match_kernel 3 batch 6
+    and 1, and at match_kernel 1 batch 6: the kernels launched on the
+    capture call as often as in one eager forward (INFERENCE_LAUNCHES), and
+    the replayed graph's uint8 output the eager forward's bits, quantized
+    the same way, on two batches after one capture; at match_kernel 3, the
+    graph's and the eager forward's CUDA-event ms and profiles. Returns the
+    capture calls' launches by (match_kernel, batch) and the mk3 nets."""
+    from cocosnet_tpu_torch.tools import serve as SV
+    from cocosnet_tpu_torch.train.steps import make_inference_step
+    L.set_compute_dtype(torch.bfloat16)
+    counted = _counted()
+    captures, kept = {}, None
+    for mk in (3, 1):
+        opt = inference_opt(cfg, mk)
+        nets = P.Pix2PixNets(opt, seed=0)
+        condition_weights(nets.corr, g, "cuda")
+        condition_weights(nets.gen, g, "cuda")
+        infer = make_inference_step(nets)
+
+        def eager(batch):
+            return SV.quantize(infer(batch)["fake_image"])
+
+        for b in ((6, 1) if mk == 3 else (6,)):
+            tag = f"serve graph mk{mk} B{b}"
+            batches = [{k: v.cuda() for k, v in make_batch(
+                g, b, 256, 256, opt.semantic_nc).items()} for _ in range(2)]
+            _zero_counts(counted)
+            want = eager(batches[0])
+            torch.cuda.synchronize()
+            forward = {k: fn.launches for k, fn in counted.items()}
+            want = [want, eager(batches[1])]
+            step = SV.make_serve_step(nets, b)
+            step.warm_up()
+            _zero_counts(counted)
+            step.capture()
+            torch.cuda.synchronize()
+            captures[(mk, b)] = {k: fn.launches for k, fn in counted.items()}
+            _check(captures[(mk, b)] == forward == INFERENCE_LAUNCHES[mk],
+                   f"{tag}: the capture call launched {captures[(mk, b)]}, "
+                   f"one eager forward's launches")
+            for i, batch in enumerate(batches):
+                got = step(batch).clone()
+                diff = int((got.int() - want[i].int()).abs().max())
+                std = float(got.float().std())
+                _check(got.dtype == torch.uint8 and tuple(got.shape) == (
+                    b, 256, 256, 3) and torch.equal(got, want[i])
+                    and std > 10,
+                    f"{tag}: replay {i + 1} after one capture has the eager "
+                    f"forward's bits (max level diff {diff}; std {std:.1f} "
+                    f"levels)")
+            _check(all(fn.launches == captures[(mk, b)][k]
+                       for k, fn in counted.items()),
+                   f"{tag}: the replays ran no kernel wrapper")
+            if mk == 3:
+                graph_ms = time_ms(lambda: step(batches[0]), runs=10)
+                eager_ms = time_ms(lambda: eager(batches[0]), runs=10)
+                print(f"{tag}: graph {graph_ms:.2f} ms, eager {eager_ms:.2f} "
+                      f"ms per forward (CUDA events, 10 runs; "
+                      f"{b * 1e3 / graph_ms:.2f} vs "
+                      f"{b * 1e3 / eager_ms:.2f} images/s)", flush=True)
+                print(f"{tag}, graph replay:", flush=True)
+                profile_call(lambda: step(batches[0]))
+                print(f"{tag}, eager forward:", flush=True)
+                profile_call(lambda: eager(batches[0]))
+            del step, batches, want
+            torch.cuda.empty_cache()
+        if mk == 3:
+            kept = nets
+        del nets, infer
+        torch.cuda.empty_cache()
+    L.set_compute_dtype(None)
+    return captures, kept
+
+
+def served_files(L, nets, base) -> None:
+    """Phase 8, second part: the serve twin in-process (--once, batch 6,
+    npy) on 8 requests of a synthetic ADE20k tree, from nets' weights
+    saved as the reference's flat latest_net_{G,Corr}.pth; every served
+    file holds the bits of nets' eager forward, quantized as serve.py
+    does, on the batches the server dispatched, rebuilt through the same
+    pipeline."""
+    import numpy as np
+    from cocosnet_tpu_torch.cli import common
+    from cocosnet_tpu_torch.data import transforms as T
+    from cocosnet_tpu_torch.tools import serve as SV
+    from cocosnet_tpu_torch.train.steps import make_inference_step
+    ck = os.path.join(base, "checkpoints", "serve")
+    os.makedirs(ck)
+    torch.save(nets.gen.state_dict(), os.path.join(ck, "latest_net_G.pth"))
+    torch.save(nets.corr.state_dict(),
+               os.path.join(ck, "latest_net_Corr.pth"))
+    train = os.path.join(base, "ade", "training")
+    watch, out = os.path.join(base, "in"), os.path.join(base, "out")
+    os.makedirs(watch)
+    stems = sorted(f[:-4] for f in os.listdir(train) if f.endswith(".jpg"))
+    for i in range(8):
+        a, b = stems[i], stems[i + 1]
+        for src, dst in ((a + ".png", ".label.png"),
+                         (b + ".png", ".ref_label.png"),
+                         (b + ".jpg", ".ref.jpg")):
+            with open(os.path.join(train, src), "rb") as f:
+                data = f.read()
+            with open(os.path.join(watch, f"r{i}{dst}"), "wb") as f:
+                f.write(data)
+    run = SV.main(SERVE_FLAGS + [
+        "--watch_dir", watch, "--out_dir", out, "--once", "--poll_s",
+        "0.05", "--out_format", "npy", "--batchSize", "6",
+        "--checkpoints_dir", os.path.dirname(ck), "--name", "serve"])
+    torch.cuda.synchronize()
+    _check(run.served == 8 and run.failed == 0,
+           f"serve twin --once: 8 requests served in {len(run.batches)} "
+           f"batches {run.batches}")
+    opt = nets.opt
+    common.set_numerics(opt)    # the policy the server ran under
+    pipeline = SV.make_label_pipeline(opt)
+    infer = make_inference_step(nets)
+    for reqs in run.batches:
+        batch = SV.zero_batch(opt, 6)
+        for j, r in enumerate(reqs):
+            rl, params = SV.label_tensor(
+                pipeline, os.path.join(watch, r + ".ref_label.png"))
+            batch["label"][j] = SV.label_tensor(
+                pipeline, os.path.join(watch, r + ".label.png"))[0]
+            batch["label_ref"][j] = rl
+            batch["ref"][j] = T.image_to_tensor(opt, PILImage.open(
+                os.path.join(watch, r + ".ref.jpg")).convert("RGB"), params)
+        want = SV.quantize(infer(batch)["fake_image"]).cpu().numpy()
+        for j, r in enumerate(reqs):
+            got = np.load(os.path.join(out, r + ".npy"))
+            _check(got.dtype == np.uint8 and got.shape == want[j].shape
+                   and np.array_equal(got, want[j]),
+                   f"served {r}.npy (slot {j}) has the bits of the eager "
+                   f"step's quantized output (std {got.std():.1f} levels)")
+    L.set_compute_dtype(None)
+
+
+def serve_load(base) -> None:
+    """Phase 8, third part: tools/bench_serve against the serve twin as a
+    subprocess on the card, from the weights of served_files: 480
+    requests at batch 6 all at once with npy and with png results, then
+    200 at batch 1 at 10 requests/s; prints each JSON line."""
+    from cocosnet_tpu_torch.tools import bench_serve as BS
+    src = os.path.join(base, "ade", "training")
+    serve = SERVE_FLAGS + ["--checkpoints_dir",
+                           os.path.join(base, "checkpoints"), "--name",
+                           "serve"]
+    for what, bench, extra in (
+            ("batch 6, all at once, npy", ["--n_requests", "480",
+                                           "--warmup", "6"],
+             ["--batchSize", "6", "--out_format", "npy"]),
+            ("batch 6, all at once, png", ["--n_requests", "480",
+                                           "--warmup", "6"],
+             ["--batchSize", "6", "--out_format", "png"]),
+            ("batch 1 at 10 requests/s, png", ["--n_requests", "200",
+                                               "--warmup", "2",
+                                               "--arrival_rate", "10"],
+             ["--batchSize", "1", "--out_format", "png"])):
+        t = time.perf_counter()
+        res = BS.main(["--src_dir", src, "--timeout_s", "240"] + bench
+                      + ["--"] + serve + extra)
+        lat = res["latency_ms"]
+        _check(res["throughput_rps"] > 0 and 0 < lat["p50"] <= lat["p99"],
+               f"bench_serve {what}: {res['throughput_rps']} requests/s, "
+               f"p50 {lat['p50']} ms, p99 {lat['p99']} ms (the run "
+               f"{time.perf_counter() - t:.1f} s with the server's start)")
+
+
+def serving(P, cfg, L, g) -> dict:
+    """Phase 8: the serving path on the card (serve_graphs, served_files,
+    serve_load) on a synthetic ADE20k tree made from a seed (240 photos
+    of 384 x 288: bench_serve's 480 requests at batch 6 cycle through them
+    twice, and a cycle puts more entries in the serve twin's preprocess
+    cache than its 256, so no request finds its photos there from the
+    cycle before). Returns the capture calls' launches by (match_kernel,
+    batch)."""
+    import shutil
+    import tempfile
+    from cocosnet_tpu_torch.data import synthetic as SYN
+    base = tempfile.mkdtemp(prefix="cocosnet_serve_")
+    try:
+        SYN.make_ade20k_tree(os.path.join(base, "ade"), n_train=240,
+                             n_val=1)
+        captures, nets = serve_graphs(P, cfg, L, g)
+        served_files(L, nets, base)
+        del nets
+        torch.cuda.empty_cache()
+        serve_load(base)
+    finally:
+        L.set_compute_dtype(None)
+        shutil.rmtree(base, ignore_errors=True)
+    return captures
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA device: this smoke test runs only on a GPU")
@@ -1717,6 +1954,7 @@ def main() -> None:
     for name in _build.SOURCES:
         _build.library(name)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    _phase_done(1, t_start)
 
     # phase 2: each kernel against its plain version at flagship shapes
     torch.backends.cudnn.allow_tf32 = False
@@ -1794,34 +2032,41 @@ def main() -> None:
     check_bigc(Kc, TC, g, b=2, n=2500, m=2304, timed=False)
     check_bigc_bwd(Kc, KB, TC, g, b=2, n=2500, m=2304, timed=False)
     torch.cuda.empty_cache()
+    _phase_done(2, t_start)
 
     # phase 3: the small-input slices against the plain versions
     for mk in (3, 1):
         reference_check(P, cfg, g, mk)
-    # phase 3b: small f32 train steps against the plain versions
+    # phase 3b: small f32 train steps against the plain versions, computed
+    # once a match_kernel on its first route
+    refs = {}
     for mk, route in ((3, "kernels"), (1, "library"), (1, "kernels"),
                       (3, "dw all"), (3, "fused")):
         with train_route(route):
-            train_reference_check(P, cfg, L, TS, ST, g, mk, route)
+            train_reference_check(P, cfg, L, TS, ST, g, mk, route, refs)
         torch.cuda.empty_cache()
+    del refs
+    _phase_done(3, t_start)
 
     # phases 4 and 4b: flagship-width inference, bf16 policy
     runs = {"inference": flagship_inference(P, cfg, L, g, 3, 10),
             "match_kernel 1 inference": flagship_inference(P, cfg, L, g, 1,
                                                            10)}
+    _phase_done(4, t_start)
     # phases 5 and 5b: flagship-width training, bf16 policy
     runs["train step"] = flagship_training(P, cfg, TS, ST, g, 3, "kernels",
-                                           10)
+                                           5)
     for route in ("library", "kernels"):
         with train_route(route):
             runs[f"match_kernel 1 train step, {route} route"] = \
-                flagship_training(P, cfg, TS, ST, g, 1, route, 10)
+                flagship_training(P, cfg, TS, ST, g, 1, route, 5)
     # phases 5c and 5d: the flagship train step on its two conv routes
     for route, path in (("dw", "train step, COCOSNET_PALLAS_DW=1"),
                         ("fused", "train step, COCOSNET_FUSED_CONV_TRAIN=1")):
         with train_route(route):
             runs[path] = flagship_training(P, cfg, TS, ST, g, 3, route, 5)
     L.set_compute_dtype(None)
+    _phase_done(5, t_start)
 
     # phase 6: the tool twins at their defaults; bench_corr is the path of
     # the large-descriptor kernels
@@ -1840,9 +2085,18 @@ def main() -> None:
            and runs["bench_corr"]["attend_corr_bigc_backward"] > 0,
            f"bench_corr launched the large-descriptor kernels "
            f"{runs['bench_corr']}")
+    _phase_done(6, t_start)
 
     # phase 7: the command-line twins on a synthetic ADE20k tree
     entry_twins(L)
+    _phase_done(7, t_start)
+
+    # phase 8: the serving path: the forward as a CUDA graph, the serve
+    # twin's files, bench_serve against it
+    captures = serving(P, cfg, L, g)
+    _phase_done(8, t_start)
+    serve_launches = {k: captures[(3, 6)][k] or captures[(1, 6)][k]
+                      for k in captures[(3, 6)]}
 
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)
@@ -1881,8 +2135,11 @@ def main() -> None:
            "attend_corr_bigc_backward": (
                "cocosnet_tpu_torch/csrc/corr_bwd.cu",
                "cocosnet_tpu/ops/pallas_corr_bigc.py:194", "bench_corr")}
+    # serve_launches: the capture call's, of the serve graph at mk3 B6 (at
+    # mk1 B6 for the mk1 correlation)
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
-                    path=path, launches=runs[path][k], **rows[k])
+                    path=path, launches=runs[path][k],
+                    serve_launches=serve_launches[k], **rows[k])
                for k, (source, replaces, path) in src.items()]
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.0f} s",
           flush=True)

@@ -9,11 +9,13 @@ holding each net's state dict under the reference's file names
   place of the parameters, train.state.ema_state_dicts);
 - optimizer.pth: both Adam states and the step counter.
 The spectral weight_u / weight_v are buffers, so they travel in the state
-dicts. `save_state` writes the directory beside its target and swaps it in
-with two renames, so `state_<label>` always names a complete checkpoint; a
-crash between the renames leaves `state_<label>.old`, which the loaders
-take. `load_inference` also reads the reference's flat
-`<label>_net_G.pth` / `<label>_net_Corr.pth` files.
+dicts. An inference checkpoint, `state_infer_<label>/` (`save_inference`,
+the output of tools/export_inference.py), holds net_G.pth and net_Corr.pth
+only, the EMA shadows in place of the parameters under --use_ema. Both
+are written beside their target and swapped in with two renames, so the
+directory always names a complete checkpoint; a crash between the renames
+leaves `<dir>.old`, which the loaders take. `load_inference` also reads
+the reference's flat `<label>_net_G.pth` / `<label>_net_Corr.pth` files.
 """
 
 from __future__ import annotations
@@ -43,30 +45,48 @@ def _cpu(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in sd.items()}
 
 
-def save_state(opt, state: S.TrainState, nets, label: str) -> str:
-    """Writes state_<label>/ (see the module docstring) and returns its
-    path: into state_<label>.new, then the old directory renamed to .old,
-    .new renamed into place and .old removed (checkpoints.py:31-62)."""
-    path = ckpt_dir(opt, label)
+def _save_swapped(path: str, files: Dict[str, object]) -> str:
+    """torch.save of each {file name: object} into path.new, then the old
+    directory renamed to .old, .new renamed into place and .old removed
+    (checkpoints.py:31-62); returns path."""
     new_path, old_path = path + ".new", path + ".old"
     shutil.rmtree(new_path, ignore_errors=True)
     shutil.rmtree(old_path, ignore_errors=True)
     os.makedirs(new_path)
-    for name, fname in NET_FILES.items():
-        net = getattr(nets, name)
-        if net is not None:
-            torch.save(_cpu(net.state_dict()), os.path.join(new_path, fname))
-    if state.ema is not None:
-        for name, sd in S.ema_state_dicts(state, nets).items():
-            torch.save(_cpu(sd), os.path.join(new_path, EMA_FILES[name]))
-    torch.save({"opt_g": state.opt_g.state_dict(),
-                "opt_d": state.opt_d.state_dict(), "step": state.step},
-               os.path.join(new_path, OPTIMIZER_FILE))
+    for fname, obj in files.items():
+        torch.save(obj, os.path.join(new_path, fname))
     if os.path.exists(path):
         os.rename(path, old_path)
     os.rename(new_path, path)   # atomic on POSIX
     shutil.rmtree(old_path, ignore_errors=True)
     return path
+
+
+def save_state(opt, state: S.TrainState, nets, label: str) -> str:
+    """Writes state_<label>/ (see the module docstring) and returns its
+    path."""
+    files = {fname: _cpu(getattr(nets, name).state_dict())
+             for name, fname in NET_FILES.items()
+             if getattr(nets, name) is not None}
+    if state.ema is not None:
+        for name, sd in S.ema_state_dicts(state, nets).items():
+            files[EMA_FILES[name]] = _cpu(sd)
+    files[OPTIMIZER_FILE] = {"opt_g": state.opt_g.state_dict(),
+                             "opt_d": state.opt_d.state_dict(),
+                             "step": state.step}
+    return _save_swapped(ckpt_dir(opt, label), files)
+
+
+def save_inference(opt, state: S.TrainState, nets, label: str) -> str:
+    """Writes state_infer_<label>/ with G's and Corr's state dicts under
+    net_G.pth and net_Corr.pth: the EMA shadows in place of the
+    parameters when the state keeps them (--use_ema), as
+    tools/export_inference.py exports them. Returns its path."""
+    # ema_state_dicts gives the live parameters where state.ema is None
+    sds = S.ema_state_dicts(state, nets)
+    return _save_swapped(ckpt_dir(opt, f"infer_{label}"),
+                         {NET_FILES[name]: _cpu(sd)
+                          for name, sd in sds.items()})
 
 
 def resolve_ckpt_path(path: str) -> Optional[str]:
@@ -137,15 +157,18 @@ def load_network(net: torch.nn.Module, path: str, device) -> None:
 
 def load_inference(opt, nets, label: str) -> Optional[str]:
     """Loads G and Corr for inference, in test.py's order
-    (test.py:133-183): the port's state_<label>/ (or .old), taking the EMA
-    files under --use_ema when they are there; else the reference's flat
-    <label>_net_G.pth + <label>_net_Corr.pth beside it, preferring
+    (test.py:133-183): the export's state_infer_<label>/, then the port's
+    state_<label>/ (each or its .old), taking the EMA files under
+    --use_ema when they are there; else the reference's flat
+    <label>_net_G.pth + <label>_net_Corr.pth beside them, preferring
     <label>_net_G_ema.pth / <label>_net_netCorr_ema.pth under --use_ema.
     Returns a description of what was loaded, None when nothing was
     found."""
     root = os.path.join(opt.checkpoints_dir, opt.name)
-    path = resolve_ckpt_path(ckpt_dir(opt, label))
-    if path is not None:
+    for which in (f"infer_{label}", label):
+        path = resolve_ckpt_path(ckpt_dir(opt, which))
+        if path is None:
+            continue
         files = {}
         for name in ("gen", "corr"):
             ema = os.path.join(path, EMA_FILES[name])

@@ -589,3 +589,56 @@ def test_test_twin_on_the_card_matches_its_cpu_run(gen, tmp_path):
     torch.testing.assert_close(torch.from_numpy(card.first_fake),
                                torch.from_numpy(cpu.first_fake), rtol=0,
                                atol=5e-4)
+
+
+def test_serve_graph_replays_the_eager_forward(gen):
+    """tools/serve.make_serve_step at 256 px (ngf 16, label_nc 12, batch 2,
+    f32, weights at unit signal scale: a 64 x 64 feature map, which takes
+    the shift9 kernel and both dense conv kernels) on the card: each kernel
+    launched as often on the capture call as in one eager forward, and the
+    replayed graph's uint8 output the bits of the eager forward quantized
+    the same way, on two batches after one capture."""
+    from cocosnet_tpu_torch import config as TCFG
+    from cocosnet_tpu_torch import pix2pix as TP
+    from cocosnet_tpu_torch.tools import serve as SV
+    from cocosnet_tpu_torch.train.steps import make_inference_step
+    from torch_fixtures import condition
+    opt = TCFG.test_defaults(
+        dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,
+        crop_size=256, load_size=256, batchSize=2, ngf=16,
+        use_attention=True, maskmix=True, PONO=True, PONO_C=True,
+        warp_mask_losstype="direct", compute_dtype="f32", isTrain=False)
+    nets = TP.Pix2PixNets(opt, device="cuda")
+    condition(nets.gen, 1)
+    condition(nets.corr, 2)
+    counted = (S.attend_shift9, C.conv3x3_fused, C.conv3x3_fused_stats,
+               C.conv3x3_onehot)
+
+    def batch():
+        return {
+            "label": torch.randint(0, 13, (2, 256, 256, 1),
+                                   generator=gen).float(),
+            "image": torch.zeros(2, 256, 256, 3),
+            "ref": torch.rand(2, 256, 256, 3, generator=gen) * 2 - 1,
+            "label_ref": torch.randint(0, 13, (2, 256, 256, 1),
+                                       generator=gen).float(),
+            "self_ref": torch.zeros(2)}
+
+    infer = make_inference_step(nets)
+    batches = [batch(), batch()]
+    n = [fn.launches for fn in counted]
+    eager = [SV.quantize(infer(b)["fake_image"]) for b in batches]
+    per_forward = [(fn.launches - k) // 2 for fn, k in zip(counted, n)]
+    assert per_forward[0] == 1 and min(per_forward[1:3]) > 0
+    step = SV.make_serve_step(nets, 2)
+    step.warm_up()
+    n = [fn.launches for fn in counted]
+    step.capture()
+    assert [fn.launches - k for fn, k in zip(counted, n)] == per_forward
+    for b, want in zip(batches, eager):
+        got = step(b)
+        assert got.dtype == torch.uint8 and got.shape == (2, 256, 256, 3)
+        assert torch.equal(got, want)
+    assert float(eager[0].float().std()) > 10   # far from flat
+    # a replay does not run the Python wrappers
+    assert [fn.launches - k for fn, k in zip(counted, n)] == per_forward

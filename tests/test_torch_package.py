@@ -78,6 +78,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from cocosnet_tpu_torch.cli import train as TTRAIN
     from cocosnet_tpu_torch.data import synthetic as SYN
     from cocosnet_tpu_torch.nn import layers as TL
+    from cocosnet_tpu_torch.tools import export_inference as TEXPORT
+    from cocosnet_tpu_torch.tools import serve as TSERVE
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12,
                              contain_dontcare_label=True, crop_size=64,
@@ -87,7 +89,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         TP.preprocess_input(opt, {}, device=None)
     TP.Pix2PixNets(opt, device="cpu")  # the explicit CPU request is taken
-    # the two command-line twins: the card unless --platform cpu
+    # the command-line twins and the serve and export tools: the card
+    # unless --platform cpu
     root = str(tmp_path / "ade")
     SYN.make_ade20k_tree(root, n_train=2, n_val=2, size=(64, 64),
                          n_classes=13, block=8)
@@ -96,10 +99,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
             "--batchSize", "2", "--checkpoints_dir", str(tmp_path / "ck"),
             "--output_dir", str(tmp_path / "out"), "--compute_dtype", "f32",
             "--nThreads", "0"]
-    for main in (TTEST.main, TTRAIN.main):
+    serve_argv = argv + ["--watch_dir", str(tmp_path / "in"), "--out_dir",
+                         str(tmp_path / "served")]
+    for main, args in ((TTEST.main, argv), (TTRAIN.main, argv),
+                       (TSERVE.main, serve_argv), (TEXPORT.main, argv)):
         for platform in ([], ["--platform", "gpu"], ["--platform", "cuda"]):
             with pytest.raises(RuntimeError, match="CUDA"):
-                main(argv + platform)
+                main(args + platform)
     policy = TL.get_compute_dtype()
     try:
         run = TTRAIN.main(argv + ["--platform", "cpu", "--niter", "1",
