@@ -38,6 +38,14 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   the test twin on a synthetic CelebA-HQ tree for the two CelebA-HQ modes
   (deepfashion's pose rendering needs OpenCV, so its path takes seeded
   20-channel labels);
+- the training of those three configurations (their published training
+  flags; their cycle losses run the correlation with query and key
+  swapped, one more shift9 pair a step): small f32 train steps on the card
+  against the CPU (and the ade20k cycle mask with --two_cycle), then each
+  at full width and batch 8 through make_train_step, then the train twin
+  on a synthetic CelebA-HQ tree for the two CelebA-HQ modes with the test
+  twin on its checkpoint; phase 2 holds the shift9 backward at their warp
+  widths (D 3, 22, 48) and with query and key swapped;
 checking on each path that every kernel of that path was launched as often
 as the routing predicts.
 
@@ -383,13 +391,17 @@ BWD_NAMES = ("dF3", "dqv", "dG3", "dkv", "dV")
 BWD_REL_TOL = 1e-4
 
 
-def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
+def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed, swap=False):
     """The forward and the backward kernel on one input against their
     plain versions (the backward from the kernel forward's lse and a random
-    output gradient); with `timed`, the record of the backward."""
+    output gradient); with `swap` the same draws with the roles of query
+    and key traded, as the column (cycle) warp calls the kernels; with
+    `timed`, the record of the backward."""
     dev = "cuda"
     f = torch.randn(b, h, w, c, generator=g).to(dev)
     gg = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.2).to(dev)
+    if swap:
+        f, gg = gg, f
     n = h * w
     v = torch.rand(b, n, d, generator=g).to(dev) * 2 - 1
     go = torch.randn(b, n, d, generator=g).to(dev)
@@ -397,7 +409,8 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
     o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
     po, plse = S.shift9_core_plain(f3, g3, v, qv, kv, w)
     torch.cuda.synchronize()
-    label = f"shift9 B{b} {h}x{w} C{c} D{d} pono_c={pono_c}"
+    label = (f"shift9 B{b} {h}x{w} C{c} D{d} pono_c={pono_c}"
+             + (", roles swapped" if swap else ""))
     err, lerr = _maxerr(o, po), _maxerr(lse, plse)
     _check(err <= 1e-4 and lerr <= 1e-3,
            f"{label} forward: o err {err:.3g} <= 1e-4, lse err {lerr:.3g} "
@@ -442,7 +455,7 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
         return None
     fwd_ms = time_ms(lambda: S.shift9_core_kernel(f3, g3, v, qv, kv, w))
     rate = SPLIT_PASSES * _shift9_fwd_issued(b, n, 3 * c, d) / fwd_ms / 1e9
-    print(f"     shift9 forward B{b} pono_c={pono_c}: kernel {fwd_ms:.3f} ms "
+    print(f"     {label} forward: kernel {fwd_ms:.3f} ms "
           f"in {S.shift9_fwd_parts(b, n, d, f3.device)} key parts, "
           f"{rate:.1f} TFLOP/s of TF32", flush=True)
     again = S.shift9_bwd_kernel(*args)
@@ -461,7 +474,7 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed):
     issued = _shift9_bwd_issued(b, n, c3, d)
     nb = _nbytes(f3, g3, v, qv, kv, lse, go, dd, *got)
     bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
-    print(f"     shift9 backward pono_c={pono_c}: kernel {ms:.3f} ms, plain "
+    print(f"     {label} backward: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, {lib['library']} {lib['library_ms']:.3f} ms "
           f"(+ descriptors {lib['prep_ms']:.3f} ms), bound {bms:.3f} ms "
           f"({by}: {flops / 1e9:.1f} GFLOP x {SPLIT_PASSES} bf16 passes; "
@@ -912,6 +925,12 @@ SHIFT9 = dict(attend_shift9=1, attend_shift9_backward=1)
 # image; the 16 407->407 convs stay on the library by the pad-ratio rule),
 # and a dx launch for the 106 of them whose input takes a gradient (not the
 # first convs on the data, nor the VGG's under no_grad)
+# The other configurations' steps (phase 10) run the shift9 pair once for
+# the row warp and once more for each column (cycle) warp: celebahq and
+# celebahqedge the warp's cycle (--warp_cycle_w), deepfashion none; the
+# ade20k cycle family (the cycle mask with --two_cycle) the label map's
+# column warp and its row warp back, the warp's cycle, and the real image's
+# column warp and its row warp back
 TRAIN_LAUNCHES = {(3, "kernels"): _launches(**SHIFT9),
                   (1, "library"): _launches(),
                   (1, "kernels"): _launches(attend_corr=1,
@@ -919,7 +938,14 @@ TRAIN_LAUNCHES = {(3, "kernels"): _launches(**SHIFT9),
                   (3, "dw"): _launches(conv3x3_dw=70, **SHIFT9),
                   (3, "fused"): _launches(conv3x3_fused=128,
                                           conv3x3_fused_backward=106,
-                                          **SHIFT9)}
+                                          **SHIFT9),
+                  "celebahq": _launches(attend_shift9=2,
+                                        attend_shift9_backward=2),
+                  "celebahqedge": _launches(attend_shift9=2,
+                                            attend_shift9_backward=2),
+                  "deepfashion": _launches(**SHIFT9),
+                  "ade20k cycle": _launches(attend_shift9=6,
+                                            attend_shift9_backward=6)}
 
 
 @contextlib.contextmanager
@@ -952,9 +978,12 @@ def train_route(route: str):
 
 def _corr_launches(match_kernel, route) -> dict:
     """The correlation kernels' part of a step's launches on `route`."""
-    key = (match_kernel, route if match_kernel == 1 else "kernels")
-    return {k: v for k, v in TRAIN_LAUNCHES[key].items()
-            if k.startswith("attend")}
+    return _attend_part(TRAIN_LAUNCHES[
+        (match_kernel, route if match_kernel == 1 else "kernels")])
+
+
+def _attend_part(launches) -> dict:
+    return {k: v for k, v in launches.items() if k.startswith("attend")}
 
 
 def _zero_counts(counted) -> None:
@@ -1136,18 +1165,21 @@ def term_gradients(P, L, nets, batch) -> dict:
     return grads
 
 
-def cpu_train_reference(P, cfg, L, TS, ST, g, match_kernel) -> dict:
-    """The plain versions' side of train_reference_check at `match_kernel`,
-    on the CPU under the route it is first called on: the weights at unit
-    signal scale and the batch, each loss term's gradient on each network,
-    then one train step (its losses, gradients, parameters and EMA shadows
+def small_train_opt(cfg, **kw):
+    """The flagship training configuration at train_reference_check's
+    size: 128 x 256, ngf 16, ndf 16, 13 classes, batch 1."""
+    return train_opt(cfg, label_nc=12, crop_size=256, load_size=256,
+                     aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16, **kw)
+
+
+def cpu_train_reference(P, L, TS, ST, g, opt, batch) -> dict:
+    """The plain versions' side of train_reference_check for `opt` and
+    `batch`, on the CPU under the route it is first called on: the weights
+    at unit signal scale, each loss term's gradient on each network, then
+    one train step (its losses, gradients, parameters and EMA shadows
     before and after, spectral u/v) and a second step's losses. The routes
-    of one match_kernel compute the same function, so their card runs are
+    of one configuration compute the same function, so their card runs are
     held to one reference."""
-    opt = train_opt(cfg, label_nc=12, crop_size=256, load_size=256,
-                    aspect_ratio=2.0, batchSize=1, ngf=16, ndf=16,
-                    match_kernel=match_kernel)
-    batch = make_batch(g, 1, 128, 256, opt.semantic_nc)
     cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
     for net in cpu.modules():
         condition_weights(net, g, "cpu")
@@ -1163,7 +1195,8 @@ def cpu_train_reference(P, cfg, L, TS, ST, g, match_kernel) -> dict:
     cstep = ST.make_train_step(cpu)
     ref["want"], _ = cstep(cstate, batch, ref["lr"])
     ref["cg"], ref["cp"] = _grads(cpu, cstate), _params(cpu)
-    ref["ema"] = {k: v.cpu().double() for k, v in cstate.ema.items()}
+    ref["ema"] = {k: v.cpu().double()
+                  for k, v in (cstate.ema or {}).items()}
     ref["uv"] = [{k: t.clone() for k, t in m.state_dict().items()
                   if k.endswith(("weight_u", "weight_v"))}
                  for m in cpu.modules()]
@@ -1171,16 +1204,15 @@ def cpu_train_reference(P, cfg, L, TS, ST, g, match_kernel) -> dict:
     return ref
 
 
-def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route,
-                          refs: dict):
+def train_reference_check(P, L, TS, ST, ref, tag, corr_launches, route):
     """The train step's gradients and two f32 train steps on the card (on
     `route`: at match_kernel 1 "kernels" or "library" for the correlation,
     library convs; at match_kernel 3 "kernels", library convs, or a conv
     route, "dw all" or "fused") against the same weights and batch through
-    the plain versions on the CPU (cpu_train_reference, kept in refs by
-    match_kernel), at reference_check's size (128 x 256, ngf 16, ndf 16, 13
-    classes, batch 1: a size where the conv gates take some convs, so the
-    conv routes' counters move):
+    the plain versions on the CPU (ref, from cpu_train_reference), at
+    reference_check's size (128 x 256, ngf 16, ndf 16, batch 1: a size
+    where the conv gates take some convs, so the conv routes' counters
+    move), the correlation kernels launched as `corr_launches` says:
     - each loss term's gradient on each network it trains, at 2e-2
       relative L2: the f32 orders alone move them up to 7e-3 (the
       contextual loss's 1 - cos cancels, and 1/tau = 100 amplifies the
@@ -1199,12 +1231,7 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route,
       2e-5;
     and the second step's losses at rel 2e-2, as the CPU tests hold it."""
     from cocosnet_tpu_torch.tools import ab_dw as AB
-    if match_kernel not in refs:
-        refs[match_kernel] = cpu_train_reference(P, cfg, L, TS, ST, g,
-                                                 match_kernel)
-    ref = refs[match_kernel]
     opt, batch, lr = ref["opt"], ref["batch"], ref["lr"]
-    tag = f"match_kernel {match_kernel} ({route} route)"
     gpu = P.Pix2PixNets(opt, device="cuda", seed=1)
     for sd, b in zip(ref["start"], gpu.modules()):
         b.load_state_dict(sd)
@@ -1234,8 +1261,7 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route,
     got = res[0][0]
     torch.cuda.synchronize()
     moved = {k: fn.launches for k, fn in counted.items()}
-    want_moved = _launches(**_corr_launches(match_kernel, route),
-                           **AB.predicted_launches(records))
+    want_moved = _launches(**corr_launches, **AB.predicted_launches(records))
     _check(moved == want_moved,
            f"{tag} small train step launched {moved} == {want_moved}, the "
            f"routing's prediction")
@@ -1256,7 +1282,7 @@ def train_reference_check(P, cfg, L, TS, ST, g, match_kernel, route,
         upd = _rel_l2(gp[net], cp[net], p0[net])
         _check(upd <= 0.1, f"{tag} small train step, {net} update p1 - p0: "
                f"relative L2 {upd:.3g} <= 0.1")
-    for net in ("gen", "corr"):
+    for net in ("gen", "corr") if ref["ema"] else ():
         pre = net + "."
         ce = {k: v for k, v in ref["ema"].items() if k.startswith(pre)}
         ge = {k: gstate.ema[k].cpu().double() for k in ce}
@@ -1548,26 +1574,43 @@ def flagship_inference(P, cfg, L, g, match_kernel, timed_runs) -> dict:
     return launches
 
 
+# the loss terms of the flagship train step
+FLAGSHIP_LOSS_KEYS = {"no_vgg_feat", "GAN", "GAN_Feat", "fm", "perc",
+                      "contextual", "mask", "D_Fake", "D_real"}
+
+
 def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps) -> dict:
     """Phases 5, 5b, 5c and 5d: flagship-width training at batch 8 under the
     bf16 policy through make_train_step, at `match_kernel` on `route` (the
-    correlation's at match_kernel 1; "kernels", "dw" or "fused" at 3): the
-    launches of one step, against TRAIN_LAUNCHES and against the routing's
-    prediction from the step's recorded convs, finite losses, two warm-up
+    correlation's at match_kernel 1; "kernels", "dw" or "fused" at 3):
+    train_path against TRAIN_LAUNCHES. Returns the launches of the counted
+    step."""
+    opt = train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
+                    batchSize=8, ngf=64, ndf=64, match_kernel=match_kernel)
+    return train_path(
+        P, TS, ST, g, opt,
+        lambda: make_batch(g, 8, 256, 256, opt.semantic_nc),
+        f"match_kernel {match_kernel} flagship training ({route} route)",
+        TRAIN_LAUNCHES[(match_kernel, route)], FLAGSHIP_LOSS_KEYS, steps)
+
+
+def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
+               steps) -> dict:
+    """A full-width train step at batch 8 through make_train_step, weights
+    at unit signal scale, on the batch draw_batch() draws after them: the
+    launches of one step, against `expected` and against the routing's
+    prediction from the step's recorded convs (the correlation's part of
+    `expected` beside it), the loss terms `loss_keys`, finite, two warm-up
     steps, then `steps` timed steps, peak memory and a profile of one step.
     Returns the launches of the counted step."""
     from cocosnet_tpu_torch.tools import ab_dw as AB
-    opt = train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
-                    batchSize=8, ngf=64, ndf=64, match_kernel=match_kernel)
-    tag = f"match_kernel {match_kernel} flagship training ({route} route)"
     nets = P.Pix2PixNets(opt, seed=0)
     for net in nets.modules():
         condition_weights(net, g, "cuda")
     state = TS.create_train_state(opt, nets)
     step = ST.make_train_step(nets)
     lr = TS.lrs_for_epoch(opt, 1)
-    batch = {k: v.cuda() for k, v in
-             make_batch(g, 8, 256, 256, opt.semantic_nc).items()}
+    batch = {k: v.cuda() for k, v in draw_batch().items()}
     torch.cuda.reset_peak_memory_stats()
 
     def finite(losses):
@@ -1581,15 +1624,14 @@ def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps) -> dict:
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counted.items()}
     print(f"launches in one {tag} step: {launches}", flush=True)
-    expected = TRAIN_LAUNCHES[(match_kernel, route)]
-    predicted = _launches(**_corr_launches(match_kernel, route),
+    predicted = _launches(**_attend_part(expected),
                           **AB.predicted_launches(records))
     _check(launches == expected == predicted,
            f"every kernel of the train path launched as TRAIN_LAUNCHES "
            f"states {expected} and the routing predicts from the step's "
            f"{len(records)} convs")
-    _check(len(losses) == 9 and finite(losses),
-           "9 loss terms, all finite: " + ", ".join(
+    _check(set(losses) == loss_keys and finite(losses),
+           f"{len(loss_keys)} loss terms, all finite: " + ", ".join(
                f"{k} {float(v):.4g}" for k, v in sorted(losses.items())))
     _check(tuple(vis["fake_image"].shape) == (8, 256, 256, 3)
            and bool(torch.isfinite(vis["fake_image"]).all()),
@@ -2310,6 +2352,177 @@ def published_configs(P, cfg, L, C, S, g) -> list:
     return rows
 
 
+# ----------------------------------------------------------------- phase 10
+
+# the training flags of each configuration beyond its inference ones
+# (tests/test_train_variants.py, from the reference README's training
+# command lines; celebahqedge's are an assumption, PERF.md section 4), and
+# their command-line form
+CONFIG_TRAIN = {
+    "celebahq": dict(weight_mask=100.0, warp_cycle_w=0.1,
+                     which_perceptual="4_2", weight_perceptual=0.001,
+                     fm_ratio=1.0),
+    "celebahqedge": dict(warp_bilinear=True, warp_cycle_w=0.1,
+                         which_perceptual="4_2", weight_perceptual=0.001,
+                         fm_ratio=1.0),
+    "deepfashion": dict(warp_self_w=100.0, real_reference_probability=0.0,
+                        which_perceptual="4_2"),
+}
+CONFIG_TRAIN_ARGV = {
+    "celebahq": ["--weight_mask", "100.0", "--warp_cycle_w", "0.1",
+                 "--which_perceptual", "4_2", "--weight_perceptual", "0.001",
+                 "--fm_ratio", "1.0", "--vgg_normal_correct"],
+    "celebahqedge": ["--warp_bilinear", "--warp_cycle_w", "0.1",
+                     "--which_perceptual", "4_2", "--weight_perceptual",
+                     "0.001", "--fm_ratio", "1.0", "--vgg_normal_correct"],
+}
+# the ade20k cycle family on the flagship's training flags:
+# tests/test_train_variants.py's test_cycle_mask_and_two_cycle
+CYCLE_FAMILY = dict(warp_mask_losstype="cycle", weight_mask=10.0,
+                    warp_cycle_w=1.0, two_cycle=True)
+# the loss terms of each configuration's step (tests/test_torch_train_
+# configs.py holds them to the JAX package's)
+_COMMON_LOSSES = {"no_vgg_feat", "GAN", "GAN_Feat", "fm", "perc",
+                  "contextual", "D_Fake", "D_real"}
+CONFIG_LOSS_KEYS = {"celebahq": _COMMON_LOSSES | {"G_warp_cycle", "mask"},
+                    "celebahqedge": _COMMON_LOSSES | {"G_warp_cycle"},
+                    "deepfashion": _COMMON_LOSSES | {"G_warp_self"}}
+CONFIG_TRAIN_STEPS = 3
+
+
+def config_train_opt(cfg, mode, **kw):
+    """A published configuration's training flags, with the flagship's
+    --vgg_normal_correct, at full width (256 px, ngf 64, ndf 64) and batch
+    8, or with the keywords given."""
+    return config_opt(cfg, mode, **{**CONFIG_TRAIN[mode], "isTrain": True,
+                                    "vgg_normal_correct": True,
+                                    "batchSize": 8, "ndf": 64, **kw})
+
+
+def config_train_twin(L, mode, base) -> None:
+    """The train twin (cli/train.py) at full width, batch 4, on a synthetic
+    CelebA-HQ tree (8 training photos of 288 x 288: 2 G steps): the shift9
+    pair launched as TRAIN_LAUNCHES states a step, the configuration's
+    loss terms finite, state_latest/ written and the grid of the second
+    step; then the test twin (cli/test.py) on that checkpoint: its nets
+    bit for bit the trained ones, a finite output. Prints s/step with the
+    host pipeline."""
+    import statistics
+    from cocosnet_tpu_torch.cli import test as TTEST
+    from cocosnet_tpu_torch.cli import train as TTRAIN
+    from cocosnet_tpu_torch.data import synthetic as SYN
+    from cocosnet_tpu_torch.train import checkpoints as CK
+    root, tables = os.path.join(base, "celeb"), os.path.join(base, "tables")
+    if not os.path.isdir(root):
+        SYN.make_celebahq_tree(root, n_train=8, n_val=4, size=288,
+                               block=32, table_dir=tables)
+    ck, out = os.path.join(base, "checkpoints"), os.path.join(base, "output")
+    flags = ["--dataset_mode", mode, "--dataroot", root, "--ref_table_dir",
+             tables, "--batchSize", "4", "--crop_size", "256",
+             "--load_size", "256", "--nThreads", "4", "--checkpoints_dir",
+             ck, "--name", mode, "--output_dir", out] + PUBLISHED_ARGV[mode]
+    counted = _counted()
+    _zero_counts(counted)
+    try:
+        run = TTRAIN.main(flags + ["--niter", "1", "--niter_decay", "0",
+                                   "--save_epoch_freq", "1",
+                                   "--print_freq", "4", "--display_freq",
+                                   "8"] + CONFIG_TRAIN_ARGV[mode])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counted.items()}
+        want = {k: n * run.g_steps for k, n in TRAIN_LAUNCHES[mode].items()}
+        _check(run.g_steps == 2 and run.d_steps == 0 and launches == want,
+               f"{mode} train twin: 2 G steps, launches {launches} == {want}")
+        _check(set(run.losses) == CONFIG_LOSS_KEYS[mode] and all(
+            v == v and abs(v) < float("inf") for v in run.losses.values()),
+            f"{mode} train twin: last losses finite: " + ", ".join(
+                f"{k} {v:.4g}" for k, v in sorted(run.losses.items())))
+        files = set(os.listdir(os.path.join(ck, mode, "state_latest")))
+        # no EMA shadows: the configuration's flags leave --use_ema off
+        _check(files == {*CK.NET_FILES.values(), CK.OPTIMIZER_FILE},
+               f"{mode} train twin: state_latest/ holds {sorted(files)}")
+        size = PILImage.open(os.path.join(out, "training", mode,
+                                          "1_8.png")).size
+        _check(size == (4 * 256, 5 * 256), f"{mode} train twin grid 1_8.png "
+               f"{size} (label, ref, warp, fake and real rows of 4)")
+        print(f"{mode} train twin batch 4: "
+              f"{statistics.median(run.step_seconds[1:]):.4f} s/step (host "
+              f"clock over the loop, the loader included)", flush=True)
+        test = TTEST.main(flags + ["--which_epoch", "latest"])
+        torch.cuda.synchronize()
+        for net in ("gen", "corr"):
+            got = getattr(test.nets, net).state_dict()
+            live = getattr(run.nets, net).state_dict()
+            _check(got.keys() == live.keys() and all(
+                torch.equal(got[k], live[k]) for k in got),
+                f"{mode} test twin on the train twin's state_latest/: its "
+                f"{net}, {len(got)} tensors, bit for bit the trained one")
+        _check(test.images == 4 and bool(
+            torch.isfinite(torch.from_numpy(test.first_fake)).all()),
+            f"{mode} test twin: 4 images, the fake finite")
+        del run, test
+    finally:
+        L.set_compute_dtype(None)
+        import shutil
+        shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def config_trainings(P, cfg, L, TS, ST, g) -> dict:
+    """Phase 10: the training of celebahq, celebahqedge and deepfashion on
+    the card. (a) For each, and for the ade20k cycle family, the small f32
+    train path on the card against the plain versions on the CPU (phase
+    3b's checks and tolerances), at 128 x 256, ngf 16, ndf 16, batch 1,
+    with each mode's own label channels. (b) Each at full width (256 px,
+    ngf 64, ndf 64), batch 8, bf16 policy, through make_train_step
+    (train_path). (c) The train twin on a synthetic CelebA-HQ tree for the
+    two CelebA-HQ modes, then the test twin on its checkpoint
+    (deepfashion's pose rendering needs OpenCV). Returns the launches of
+    each full-width step by path."""
+    import shutil
+    import tempfile
+    with train_route("kernels"):
+        for mode in PUBLISHED:
+            opt = config_train_opt(cfg, mode, aspect_ratio=2.0, batchSize=1,
+                                   ngf=16, ndf=16)
+            ref = cpu_train_reference(
+                P, L, TS, ST, g, opt,
+                config_batch(g, mode, 1, 128, 256, opt.semantic_nc))
+            train_reference_check(P, L, TS, ST, ref, f"{mode} training",
+                                  _attend_part(TRAIN_LAUNCHES[mode]),
+                                  "kernels")
+            del ref
+        opt = small_train_opt(cfg, **CYCLE_FAMILY)
+        ref = cpu_train_reference(P, L, TS, ST, g, opt, make_batch(
+            g, 1, 128, 256, opt.semantic_nc))
+        train_reference_check(P, L, TS, ST, ref,
+                              "ade20k cycle mask, two_cycle training",
+                              _attend_part(TRAIN_LAUNCHES["ade20k cycle"]),
+                              "kernels")
+        del ref
+        torch.cuda.empty_cache()
+        runs = {}
+        L.set_compute_dtype(torch.bfloat16)
+        try:
+            for mode in PUBLISHED:
+                opt = config_train_opt(cfg, mode)
+                runs[f"{mode} train step"] = train_path(
+                    P, TS, ST, g, opt,
+                    lambda: config_batch(g, mode, 8, 256, 256,
+                                         opt.semantic_nc),
+                    f"{mode} training", TRAIN_LAUNCHES[mode],
+                    CONFIG_LOSS_KEYS[mode], CONFIG_TRAIN_STEPS)
+        finally:
+            L.set_compute_dtype(None)
+    base = tempfile.mkdtemp(prefix="cocosnet_config_train_")
+    try:
+        for mode in PUBLISHED_ARGV:
+            config_train_twin(L, mode, base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return runs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA device: this smoke test runs only on a GPU")
@@ -2345,6 +2558,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
+    g_widths = torch.Generator().manual_seed(12)
     rows = {}
     for pono_c in (True, False):
         r = check_shift9(S, g, pono_c=pono_c)
@@ -2357,6 +2571,21 @@ def main() -> None:
         rows.setdefault("attend_shift9_backward", r)
     check_shift9_bwd(S, g, b=1, h=128, w=128, c=256, d=154, pono_c=True,
                      timed=False)
+    # the backward at the warp widths of the other configurations' training
+    # steps (phase 10) at the same shape, timed: D 3 (the colours), 22
+    # (celebahq's colours and mask columns), 48 (deepfashion's patches);
+    # then the column (cycle) warp's call, the roles of query and key
+    # swapped, at D 3 (timed) and 48. Their inputs come from a generator
+    # of their own, so every later check draws what it drew before these
+    for d in (3, 22, 48):
+        rows[f"attend_shift9_backward D{d}"] = check_shift9_bwd(
+            S, g_widths, b=8, h=64, w=64, c=256, d=d, pono_c=True,
+            timed=True)
+    rows["attend_shift9_backward D3 swapped"] = check_shift9_bwd(
+        S, g_widths, b=8, h=64, w=64, c=256, d=3, pono_c=True, timed=True,
+        swap=True)
+    check_shift9_bwd(S, g_widths, b=8, h=64, w=64, c=256, d=48,
+                     pono_c=True, timed=False, swap=True)
     conv_cases = [
         ("conv3x3_fused", dict(b=6, h=64, w=64, ci=512, co=512, reflect=True,
                                stats=False, label="fused 512->512 @64^2 "
@@ -2428,7 +2657,14 @@ def main() -> None:
     for mk, route in ((3, "kernels"), (1, "library"), (1, "kernels"),
                       (3, "dw all"), (3, "fused")):
         with train_route(route):
-            train_reference_check(P, cfg, L, TS, ST, g, mk, route, refs)
+            if mk not in refs:
+                opt = small_train_opt(cfg, match_kernel=mk)
+                refs[mk] = cpu_train_reference(
+                    P, L, TS, ST, g, opt,
+                    make_batch(g, 1, 128, 256, opt.semantic_nc))
+            train_reference_check(P, L, TS, ST, refs[mk],
+                                  f"match_kernel {mk} ({route} route)",
+                                  _corr_launches(mk, route), route)
         torch.cuda.empty_cache()
     del refs
     _phase_done(3, t_start)
@@ -2441,15 +2677,16 @@ def main() -> None:
     # phases 5 and 5b: flagship-width training, bf16 policy
     runs["train step"] = flagship_training(P, cfg, TS, ST, g, 3, "kernels",
                                            5)
+    # (5b-5d time 3 steps, 5 before phase 10 came: the script's time)
     for route in ("library", "kernels"):
         with train_route(route):
             runs[f"match_kernel 1 train step, {route} route"] = \
-                flagship_training(P, cfg, TS, ST, g, 1, route, 5)
+                flagship_training(P, cfg, TS, ST, g, 1, route, 3)
     # phases 5c and 5d: the flagship train step on its two conv routes
     for route, path in (("dw", "train step, COCOSNET_PALLAS_DW=1"),
                         ("fused", "train step, COCOSNET_FUSED_CONV_TRAIN=1")):
         with train_route(route):
-            runs[path] = flagship_training(P, cfg, TS, ST, g, 3, route, 5)
+            runs[path] = flagship_training(P, cfg, TS, ST, g, 3, route, 3)
     L.set_compute_dtype(None)
     _phase_done(5, t_start)
 
@@ -2486,6 +2723,10 @@ def main() -> None:
     # phase 9: the three other published inference configurations
     config_rows = published_configs(P, cfg, L, C, S, g)
     _phase_done(9, t_start)
+
+    # phase 10: the training of the three other published configurations
+    runs.update(config_trainings(P, cfg, L, TS, ST, g))
+    _phase_done(10, t_start)
 
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)
@@ -2535,6 +2776,20 @@ def main() -> None:
     kernels += [dict(route="cuda", source=src[r["name"].split()[0]][0],
                      replaces=src[r["name"].split()[0]][1], **r)
                 for r in config_rows]
+    # phase 2's backward rows at the other configurations' warp widths, and
+    # the column warp's call (roles swapped), with the launches of the
+    # phase 10 step that runs them (per step: celebahq D 22 and D 3,
+    # celebahqedge D 3 twice, the second swapped, deepfashion D 48)
+    for name, path in (
+            ("attend_shift9_backward D22", "celebahq train step"),
+            ("attend_shift9_backward D3", "celebahqedge train step"),
+            ("attend_shift9_backward D3 swapped", "celebahqedge train step"),
+            ("attend_shift9_backward D48", "deepfashion train step")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=src["attend_shift9_backward"][0],
+            replaces=src["attend_shift9_backward"][1], path=path,
+            launches=runs[path]["attend_shift9_backward"], **rows[name]))
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.0f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

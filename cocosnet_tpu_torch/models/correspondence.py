@@ -6,7 +6,13 @@ theta/phi 1x1 convs and one fused correlation + softmax + warp whose values
 are the exemplar colors (avg-pooled to the feature grid and upsampled back
 nearest or, with --warp_bilinear, bilinear; with --warp_patch its d x d
 patches, folded back) and, with the direct mask loss type, the exemplar's
-one-hot map (correspondence.py:327-356). In train mode, given the real
+one-hot map (correspondence.py:327-356). The cycle warps run the same
+correlation with query and key swapped (a column softmax): with the cycle
+mask loss type the label map warped to the exemplar and back
+(`warp_mask`); with --warp_cycle_w the warp carried back to the exemplar
+(`warp_cycle`) and, with --two_cycle, the real image to the exemplar and
+back (`warp_i2r`, `warp_i2r2i`), one call per call of the JAX package, in
+its order (correspondence.py:358-382). In train mode, given the real
 image, it also returns the domain-alignment loss `loss_novgg_featpair`
 (correspondence.py:149-153).
 
@@ -146,24 +152,43 @@ class CorrespondenceNet(tnn.Module):
         if need_direct_mask:
             values.append(ref_seg_small.reshape(b, n, -1))
         v = torch.cat(values, -1)
+        # the row warp attends from the label map's positions to the
+        # exemplar's; the column (cycle) warp from the exemplar's back,
+        # the same kernels with query and key swapped (correspondence.py:
+        # 262-266, :321-325)
         if opt.match_kernel == 1:
             theta = self._descriptor(y_theta)
             phi = self._descriptor(y_phi)
-            if opt.use_pallas and not (
-                    self.training and os.environ.get(MK1_TRAIN_ENV) != "1"):
-                row_out = attend_corr(theta, phi, v, temperature)
-            else:
-                row_out = attend(theta, phi, v, temperature)
+            kernels = opt.use_pallas and not (
+                self.training and os.environ.get(MK1_TRAIN_ENV) != "1")
+            mk1 = attend_corr if kernels else attend
+
+            def row_attend(x):
+                return mk1(theta, phi, x, temperature)
+
+            def col_attend(x):
+                return mk1(phi, theta, x, temperature)
         elif opt.use_pallas:
-            row_out = attend_shift9(y_theta, y_phi, v, temperature,
-                                    opt.PONO_C)
+            def row_attend(x):
+                return attend_shift9(y_theta, y_phi, x, temperature,
+                                     opt.PONO_C)
+
+            def col_attend(x):
+                return attend_shift9(y_phi, y_theta, x, temperature,
+                                     opt.PONO_C)
         else:
-            row_out = attend_unfold(y_theta, y_phi, v, temperature,
-                                    opt.match_kernel, opt.PONO_C)
+            def row_attend(x):
+                return attend_unfold(y_theta, y_phi, x, temperature,
+                                     opt.match_kernel, opt.PONO_C)
+
+            def col_attend(x):
+                return attend_unfold(y_phi, y_theta, x, temperature,
+                                     opt.match_kernel, opt.PONO_C)
+        row_out = row_attend(v)
         dv = ref_v.shape[-1]
         if opt.warp_patch:
-            out["warp_out"] = patches_to_space(row_out[..., :dv], opt.down,
-                                               ih, iw)
+            y = patches_to_space(row_out[..., :dv], opt.down, ih, iw)
+            out["warp_out"] = y
         else:
             y = row_out[..., :dv].reshape(b, fh, fw, 3)
             out["warp_out"] = (upsample_bilinear(y, opt.down)
@@ -171,4 +196,25 @@ class CorrespondenceNet(tnn.Module):
                                else upsample_nearest(y, opt.down))
         if need_direct_mask:
             out["warp_mask"] = row_out[..., dv:].reshape(b, fh, fw, -1)
+        elif opt.warp_mask_losstype == "cycle":
+            # the label map to the exemplar and back (correspondence.py:
+            # 360-365)
+            to_ref = col_attend(seg_small.reshape(b, n, -1))
+            out["warp_mask"] = row_attend(to_ref).reshape(b, fh, fw, -1)
+        if opt.warp_cycle_w > 0:
+            # the warp carried back to the exemplar: the patches of the
+            # folded warp, or the feature-grid colours (correspondence.py:
+            # 366-382)
+            if opt.warp_patch:
+                back = col_attend(space_to_patches(y, opt.down))
+                out["warp_cycle"] = patches_to_space(back, opt.down, ih, iw)
+            else:
+                out["warp_cycle"] = col_attend(y.reshape(b, n, 3)).reshape(
+                    b, fh, fw, 3)
+                if opt.two_cycle and real_img is not None:
+                    i2r = col_attend(avg_pool(real_img, opt.down).reshape(
+                        b, n, 3))
+                    out["warp_i2r"] = i2r.reshape(b, fh, fw, 3)
+                    out["warp_i2r2i"] = row_attend(i2r).reshape(b, fh, fw,
+                                                                3)
         return out

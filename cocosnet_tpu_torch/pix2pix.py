@@ -2,8 +2,8 @@
 one-hot label scatter), runs correspondence + warp + SPADE generator, and
 assembles the generator's 11-term and the discriminator's objectives.
 
-Counterpart of cocosnet_tpu/pix2pix.py: training on the ade20k / flickr
-label path, inference also on celebahq (the glasses channel at one-hot
+Counterpart of cocosnet_tpu/pix2pix.py: training and inference on the
+ade20k / flickr label path, on celebahq (the glasses channel at one-hot
 slot -3), celebahqedge and deepfashion (dense float label channels).
 The networks are nn.Modules holding their parameters, so the functions
 take no separate variables. Entry points run on CUDA unless the caller asks
@@ -36,7 +36,7 @@ FM_WEIGHTS = [1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0]
 
 # flags whose branches are not ported yet, with the value the port runs
 _PORTED = dict(mask_noise=False, noise_for_mask=False,
-               use_coordconv=False, show_corr=False, warp_cycle_w=0.0,
+               use_coordconv=False, show_corr=False,
                adaptor_res_deeper=False, adaptor_nonlocal=False,
                adaptor_se=False, mesh_model=1,
                D_cam=0.0, remat=False, remat_full=False,
@@ -55,10 +55,9 @@ def resolve_device(device=None) -> torch.device:
 
 # dataset modes whose labels are class ids, one-hot scattered
 MASK_MODES = ("ade20k", "flickr")
-# dataset modes the port runs in inference only, and the warp flags of
-# their published configurations: their training slice is still to come
-INFERENCE_MODES = ("celebahq", "celebahqedge", "deepfashion")
-_INFERENCE_FLAGS = ("warp_bilinear", "warp_patch")
+# dataset modes whose labels are dense float channels (or, celebahq, class
+# ids with a glasses mask)
+OTHER_MODES = ("celebahq", "celebahqedge", "deepfashion")
 
 
 def check_ported(opt: Options) -> None:
@@ -67,19 +66,9 @@ def check_ported(opt: Options) -> None:
            if getattr(opt, k) != v}
     if opt.match_kernel not in (1, 3):
         bad["match_kernel"] = opt.match_kernel
-    if opt.dataset_mode not in MASK_MODES + INFERENCE_MODES:
+    if opt.dataset_mode not in MASK_MODES + OTHER_MODES:
         bad["dataset_mode"] = opt.dataset_mode
-    if opt.isTrain:
-        inference_only = {k: getattr(opt, k) for k in _INFERENCE_FLAGS
-                          if getattr(opt, k)}
-        if opt.dataset_mode in INFERENCE_MODES:
-            inference_only["dataset_mode"] = opt.dataset_mode
-        if inference_only:
-            raise NotImplementedError(
-                f"not ported yet in training: {inference_only} (the port "
-                "runs these in inference; their training slice is still to "
-                "come, ROADMAP Queue 1)")
-    if opt.warp_mask_losstype not in ("none", "direct"):
+    if opt.warp_mask_losstype not in ("none", "direct", "cycle"):
         bad["warp_mask_losstype"] = opt.warp_mask_losstype
     if opt.weight_domainC > 0 and opt.domain_rela:
         bad["weight_domainC"] = opt.weight_domainC
@@ -283,6 +272,18 @@ def compute_generator_losses(nets: Pix2PixNets, data: Batch,
         losses["no_vgg_feat"] = generate_out["loss_novgg_featpair"]
     real_image = data["real_image"]
     self_ref = data["self_ref"]
+    if opt.warp_cycle_w > 0:
+        # the exemplar itself under --warp_patch, else its colours at the
+        # warp grid; with --two_cycle also the real image's
+        ref = (data["ref_image"] if opt.warp_patch
+               else avg_pool(data["ref_image"], opt.warp_stride))
+        losses["G_warp_cycle"] = ((generate_out["warp_cycle"] - ref).abs()
+                                  .mean() * opt.warp_cycle_w)
+        if opt.two_cycle:
+            real = avg_pool(real_image, opt.warp_stride)
+            losses["G_warp_cycle"] = losses["G_warp_cycle"] + (
+                generate_out["warp_i2r2i"] - real).abs().mean() \
+                * opt.warp_cycle_w
     sample_weights = (self_ref / (self_ref.sum() + 1e-5))[:, None, None, None]
     if opt.warp_self_w > 0:
         losses["G_warp_self"] = ((generate_out["warp_out"] - real_image).abs()
@@ -309,8 +310,13 @@ def compute_generator_losses(nets: Pix2PixNets, data: Batch,
                                          generate_out["ref_features"])
                             * opt.lambda_vgg * opt.ctx_w)
     if opt.warp_mask_losstype != "none":
+        input_label, ref_label = data["input_label"], data["ref_label"]
+        if input_label.dim() == 4:
+            # the edge and pose modes' label channels: the first, as ids
+            input_label = input_label[..., 0].to(torch.int32)
+            ref_label = ref_label[..., 0].to(torch.int32)
         losses["mask"] = warp_mask_loss(opt, generate_out["warp_mask"],
-                                        data["input_label"], data["ref_label"])
+                                        input_label, ref_label)
     return losses
 
 

@@ -16,8 +16,10 @@ Corr's once per step, D's twice (in the G step's discriminate and in the D
 step). The correlation runs as models/correspondence routes it: on the
 shift9 kernels forward and backward at match_kernel 3; at match_kernel 1
 as matmul + softmax under autograd, or on attend_corr's kernels under
-COCOSNET_PALLAS_MK1_TRAIN=1. The step updates the networks' parameters,
-the optimizer state, the spectral u/v and the EMA shadows in place.
+COCOSNET_PALLAS_MK1_TRAIN=1; once a step for the row warp and once more
+for each column (cycle) warp the configuration asks for. The step updates
+the networks' parameters, the optimizer state, the spectral u/v and the
+EMA shadows in place.
 """
 
 from __future__ import annotations

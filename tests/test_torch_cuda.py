@@ -211,7 +211,13 @@ def test_shift9_kernel_gives_the_same_bits(gen, shape):
                                    # N = 260, a multiple of neither the
                                    # 124-position tiles nor the 128-row
                                    # scratch, at an odd width
-                                   (20, 13, 8, 5)])
+                                   (20, 13, 8, 5),
+                                   # the warp widths of the other
+                                   # configurations: D 22 (32-column dV
+                                   # tiles), 48 (one 96-column tile, half
+                                   # zero) and 3 (padded to 4)
+                                   (16, 16, 16, 22), (8, 32, 16, 48),
+                                   (16, 16, 16, 3)])
 def test_shift9_bwd_kernel_matches_plain(gen, shape, pono_c):
     """The backward kernel's five outputs against shift9_bwd_plain in f64
     on the same inputs, each within 1e-4 of its largest magnitude (3xTF32
@@ -232,6 +238,31 @@ def test_shift9_bwd_kernel_matches_plain(gen, shape, pono_c):
                                    atol=1e-4 * float(r.abs().max()), msg=name)
     assert torch.equal(got[1][..., 3], got[1][..., 2])
     assert not got[3][:, 3].any()
+
+
+@pytest.mark.parametrize("d", [3, 22, 48])
+def test_shift9_kernels_match_plain_with_roles_swapped(gen, d):
+    """The column (cycle) warp's call, attend_shift9(g, f, v): the same
+    draws with the queries' and the keys' features traded, so the rank-1
+    terms qv and kv (and kv's transposed layout in the backward) carry the
+    other side's statistics. The forward within 1e-4 of the plain version,
+    the backward's outputs within 1e-4 of each one's largest magnitude of
+    the f64 plain run."""
+    h, w, c = 16, 16, 16
+    f, g = _r(gen, 2, h, w, c), _r(gen, 2, h, w, c, scale=1.5) + 0.2
+    v, go = _r(gen, 2, h * w, d), _r(gen, 2, h * w, d)
+    f3, g3, qv, kv = S.shift9_inputs(g, f, 0.01, True)
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    po, plse = S.shift9_core_plain(f3, g3, v, qv, kv, w)
+    torch.testing.assert_close(o, po, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    args = (f3, g3, v, qv, kv, lse, go, (go * o).sum(-1), w)
+    got = S.shift9_bwd_kernel(*args)
+    want = [t.float() for t in S.shift9_bwd_plain(*(
+        a.double() if torch.is_tensor(a) else a for a in args))]
+    for name, a, r in zip(("dF3", "dqv", "dG3", "dkv", "dV"), got, want):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=name)
 
 
 @pytest.mark.parametrize("shape", [(20, 13, 8, 5), (4, 64, 16, 154)])

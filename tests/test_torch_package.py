@@ -124,16 +124,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_unported_options_raise():
-    """--warp_patch runs in inference (the deepfashion configuration) and
-    is refused in training, whose slice of it is still to come; an option
-    with no ported branch is refused in inference too."""
+    """--warp_patch (the deepfashion configuration) runs in inference and
+    in training; an option with no ported branch is refused in both."""
     opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12, ngf=8,
                              PONO=True, isTrain=False, warp_patch=True)
     TP.check_ported(opt)
-    with pytest.raises(NotImplementedError, match="warp_patch"):
-        TP.Pix2PixNets(opt.replace(isTrain=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="show_corr"):
-        TP.Pix2PixNets(opt.replace(show_corr=True), device="cpu")
+    TP.Pix2PixNets(opt.replace(isTrain=True), device="cpu")
+    for train in (False, True):
+        with pytest.raises(NotImplementedError, match="show_corr"):
+            TP.Pix2PixNets(opt.replace(show_corr=True, isTrain=train),
+                           device="cpu")
 
 
 @pytest.mark.parametrize("match_kernel,ported", [(1, True), (3, True),

@@ -16,7 +16,13 @@ match_kernel=1; so are the tolerances: the losses of the first step at rel
 2e-3 and of the second at 2e-2 (|t| + 1e-2 in the denominator; measured
 5.0e-6 at step 0 on both routes, 1.4e-4 on the library route and 6.9e-5
 on the kernel route at step 1), the spectral u/v after the first step at
-2e-5. The JAX step is jitted once for the module."""
+2e-5. The JAX step is jitted once for the module.
+
+Then the same flags with --warp_cycle_w 1: the column (cycle) warp on the
+dense descriptors, query and key swapped, on the library route and on
+attend_corr's kernels, with tests/test_torch_train_configs.py's checks
+(the losses and u/v as above, the train-mode correspondence outputs at
+atol 5e-4); its JAX step is jitted once more."""
 
 import numpy as np
 import pytest
@@ -39,6 +45,8 @@ from cocosnet_tpu_torch.train import steps as TST
 from test_torch_train import (LOSS_KEYS, OPT, _batch, _jnp, _spectral,
                               _variables)
 from test_torch_threads import torch_threads  # noqa: F401
+from test_torch_train_configs import (CORR_KEYS, check_corr, check_losses,
+                                      check_spectral, run_pair)
 
 MK1 = dict(OPT, match_kernel=1)
 ROUTES = ("library", "kernels", "use_pallas off")
@@ -133,3 +141,39 @@ def test_mk1_train_route(runs, route, want):
     shift9."""
     *_, calls = runs[route]
     assert calls == dict(want, attend_shift9=0, attend_shift9_backward=0)
+
+
+CYCLE_ROUTES = ("default", "mk1 kernels")
+
+
+@pytest.fixture(scope="module")
+def cycle():
+    return run_pair(dict(MK1, warp_cycle_w=1.0), CYCLE_ROUTES)
+
+
+@pytest.mark.parametrize("route", CYCLE_ROUTES)
+@pytest.mark.parametrize("step,tol", [(0, 2e-3), (1, 2e-2)])
+def test_mk1_cycle_losses_match_jax(cycle, route, step, tol):
+    assert "G_warp_cycle" in cycle["jax"][step]
+    check_losses(cycle, route, step, tol)
+
+
+@pytest.mark.parametrize("route", CYCLE_ROUTES)
+@pytest.mark.parametrize("net", ["gen", "corr", "disc"])
+def test_mk1_cycle_spectral_state_matches_jax(cycle, route, net):
+    check_spectral(cycle, route, net)
+
+
+@pytest.mark.parametrize("key", CORR_KEYS)
+def test_mk1_cycle_correspondence_matches_jax(cycle, key):
+    check_corr(cycle, key)
+
+
+@pytest.mark.parametrize("route,want", [("default", (0, 0, 0, 0)),
+                                        ("mk1 kernels", (0, 0, 4, 4))])
+def test_mk1_cycle_route(cycle, route, want):
+    """Two steps of (shift9 forward, backward, attend_corr forward,
+    backward): the library route runs neither kernel's plain version; the
+    kernel route runs attend_corr for the row and the column warp each
+    step."""
+    assert cycle[route][2] == want
