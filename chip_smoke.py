@@ -46,6 +46,14 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   on a synthetic CelebA-HQ tree for the two CelebA-HQ modes with the test
   twin on its checkpoint; phase 2 holds the shift9 backward at their warp
   widths (D 3, 22, 48) and with query and key swapped;
+- data and spatial parallelism (phase 11): the shift9 kernels at a query
+  shard against all keys (nq != nk) at the 512 px shards of 2 and 4 model
+  ranks, against their plain versions and timed; then two processes
+  sharing the card over gloo (a card of its own each would take NCCL;
+  this machine has one): the 512 px inference and a 128 px train step
+  with the correlation's query rows over two model ranks, and the train
+  step over two data ranks, each against one process on the same weights
+  and batch; a one-rank NCCL group;
 checking on each path that every kernel of that path was launched as often
 as the routing predicts.
 
@@ -1133,11 +1141,12 @@ def _check_losses(got, want, tol, what) -> None:
                for k, r in rels.items()))
 
 
-def term_gradients(P, L, nets, batch) -> dict:
+def term_gradients(P, L, nets, batch, keep: bool = False):
     """{(net, loss term): [gradient of each parameter], f64 on the CPU} of
     one train-mode forward as the train step runs it: each G-side term on
     gen and on corr, each D term (on the detached fake) on disc, by its own
-    backward pass."""
+    backward pass. With `keep`, also the fake (its graph kept) and the GAN
+    term."""
     data = P.preprocess_input(nets.opt, batch, device=nets.device)
     nets.set_train(True)
     try:
@@ -1162,7 +1171,87 @@ def term_gradients(P, L, nets, batch) -> dict:
                 grads[(net, key)] = [
                     torch.zeros(p.shape, dtype=torch.float64) if t is None
                     else t.cpu().double() for p, t in zip(ps, gs)]
+    if keep:
+        return grads, dict(fake=out["fake_image"], gan=g_losses["GAN"])
     return grads
+
+
+@contextlib.contextmanager
+def leaky_masks(disc):
+    """{module name: x > 0} of every LeakyReLU of `disc` on its first call
+    inside the block (the G phase's discriminate), on the host."""
+    masks, hooks = {}, []
+
+    def record(name):
+        def hook(mod, inp, out):
+            masks.setdefault(name, (inp[0] > 0).cpu())
+        return hook
+
+    for name, m in disc.named_modules():
+        if isinstance(m, torch.nn.LeakyReLU):
+            hooks.append(m.register_forward_hook(record(name)))
+    try:
+        yield masks
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def gan_term_reference(P, L, ref, fake, masks):
+    """The GAN term's input gradient dGAN/dfake and its gradients on gen
+    and corr, from the card's own forward: D (from the check's start state,
+    in train mode as the step runs it) in f64 on the CPU at the card's
+    fake, each LeakyReLU taking the branch the card's took (`masks`, from
+    leaky_masks), and that gradient taken back through the CPU's f32
+    forward of gen and corr ({net: [gradient of each parameter], f64}).
+    The GAN term reaches gen and corr only through the fake, and D is
+    piecewise linear: on a draw where a few of D's pre-activations lie
+    within the card's f32 rounding of 0 (the nearest 4.8e-7),
+    cuDNN's convs put them on the other side from the CPU's and f64's, and
+    dGAN/dfake moved by 2.8% with no fault in the port (PERF.md §6; with
+    cuDNN off the card's was within 6.4e-7 of f64;
+    cocosnet_tpu_torch/tools/gan_term_draw.py reproduces that draw). On the card's fake and
+    branches, the reference is the same smooth function the card
+    differentiated, so the check holds the card's arithmetic alone."""
+    from cocosnet_tpu_torch.losses.gan import gan_loss
+    opt, batch = ref["opt"], ref["batch"]
+    cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
+    for sd, m in zip(ref["start"], cpu.modules()):
+        m.load_state_dict(sd)
+    data = P.preprocess_input(opt, batch, device="cpu")
+    x = fake.detach().cpu().double().requires_grad_()
+    cpu.disc.double()
+
+    def branch(mask):
+        def hook(mod, inp, out):
+            return torch.where(mask, inp[0], mod.negative_slope * inp[0])
+        return hook
+
+    hooks = [m.register_forward_hook(branch(masks[name]))
+             for name, m in cpu.disc.named_modules()
+             if isinstance(m, torch.nn.LeakyReLU)]
+    cpu.set_train(True)
+    try:
+        with L.training():
+            pred_fake, _ = P.discriminate(cpu, data["input_semantics"].double(),
+                                          x, data["real_image"].double())
+            gan = gan_loss(pred_fake, True, for_discriminator=False,
+                           gan_mode=opt.gan_mode) * opt.weight_gan
+            u = torch.autograd.grad(gan, x)[0]
+            out = P.generate_fake(cpu, data, train=True)
+            grads = {}
+            for net in ("gen", "corr"):
+                ps = list(getattr(cpu, net).parameters())
+                gs = torch.autograd.grad(out["fake_image"], ps, u.float(),
+                                         retain_graph=True, allow_unused=True)
+                grads[net] = [torch.zeros(p.shape, dtype=torch.float64)
+                              if t is None else t.double()
+                              for p, t in zip(ps, gs)]
+    finally:
+        cpu.set_train(False)
+        for h in hooks:
+            h.remove()
+    return u, grads
 
 
 def small_train_opt(cfg, **kw):
@@ -1235,20 +1324,41 @@ def train_reference_check(P, L, TS, ST, ref, tag, corr_launches, route):
     gpu = P.Pix2PixNets(opt, device="cuda", seed=1)
     for sd, b in zip(ref["start"], gpu.modules()):
         b.load_state_dict(sd)
-    want_g = ref["want_g"]
-    got_g = term_gradients(P, L, gpu, batch)
-    rels = {}
-    for key in sorted(want_g):
-        num = sum(float(((a - b) ** 2).sum())
-                  for a, b in zip(got_g[key], want_g[key]))
-        den = sum(float((b ** 2).sum()) for b in want_g[key])
-        rels[key] = (num / den) ** 0.5 if den else (0.0 if num == 0
-                                                     else 1.0)
+    with leaky_masks(gpu.disc) as masks:
+        got_g, kept = term_gradients(P, L, gpu, batch, keep=True)
+    # the GAN term on gen and corr from the card's own fake and D's
+    # branches (see gan_term_reference); every other term against the
+    # CPU's forward
+    u_card = torch.autograd.grad(kept["gan"], kept["fake"],
+                                 retain_graph=True)[0].cpu().double()
+    u_ref, gan_g = gan_term_reference(P, L, ref, kept["fake"], masks)
+    u_rel = float((u_card - u_ref).norm() / u_ref.norm())
+    _check(u_rel <= 2e-2, f"{tag} dGAN/dfake on the card vs D in f64 on the "
+           f"CPU at the card's fake and LeakyReLU branches: relative L2 "
+           f"{u_rel:.3g} <= 2e-2")
+    want_g = dict(ref["want_g"])
+    own = {}   # the GAN term against the CPU's own fake: shown, not held
+    for net in ("gen", "corr"):
+        own[net] = want_g[(net, "GAN")]
+        want_g[(net, "GAN")] = gan_g[net]
+
+    def rel_l2(got, want):
+        num = sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want))
+        den = sum(float((b ** 2).sum()) for b in want)
+        return (num / den) ** 0.5 if den else (0.0 if num == 0 else 1.0)
+
+    rels = {key: rel_l2(got_g[key], want_g[key]) for key in sorted(want_g)}
     _check(max(rels.values()) <= 2e-2,
-           f"{tag} each loss term's gradient on each network, card vs CPU, "
-           f"relative L2 <= 2e-2: " + ", ".join(
+           f"{tag} each loss term's gradient on each network, card vs CPU "
+           f"(GAN on gen and corr from the card's fake), relative L2 <= "
+           f"2e-2: " + ", ".join(
                f"{term}/{net} {r:.2g}" for (net, term), r in rels.items()))
-    del got_g
+    print(f"     {tag} the GAN term against the CPU's own forward (not "
+          f"held: D's branches near 0 follow each side's rounding): "
+          + ", ".join(
+              f"{net} {rel_l2(got_g[(net, 'GAN')], own[net]):.2g}"
+              for net in own), flush=True)
+    del got_g, kept
     for sd, b in zip(ref["start"], gpu.modules()):
         b.load_state_dict(sd)
     p0 = ref["p0"]
@@ -2523,42 +2633,351 @@ def config_trainings(P, cfg, L, TS, ST, g) -> dict:
     return runs
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        _fail("no CUDA device: this smoke test runs only on a GPU")
+# ----------------------------------------------------------------- phase 11
+
+# the spatial-parallel (SP) correlation's shard at 512 px: B1, a 128 x 128
+# feature map (N = 16384 keys), C 256, D 154 (3 colours + 151 classes); a
+# model rank of m owns N / m query rows
+SP_HW, SP_C, SP_D = 128, 256, 154
+
+
+def check_shift9_rect(S, g, *, m, swap, square):
+    """The rectangular shift9 kernels at model rank 1's shard of m (query
+    rows N/m .. 2N/m against all N keys; with `swap` the draws of query
+    and key traded, as the column warp calls them): the forward against its
+    plain version (phase 2's bounds), the backward against an f64 run of
+    shift9_bwd_plain at 1e-4 of each output's scale; then both timed beside
+    their plain versions, SDPA f32 on the unfolded descriptors at the same
+    (nq, nk) (forward; forward + backward) and their bounds. `square`: the
+    square kernels' ms at B1 128 x 128, printed beside. Returns the rows
+    (forward, backward)."""
+    from cocosnet_tpu_torch.tools.bench_corr import descriptor
+    dev = "cuda"
+    b, h, w, c, d = 1, SP_HW, SP_HW, SP_C, SP_D
+    n = h * w
+    nq = n // m
+    f = torch.randn(b, h, w, c, generator=g).to(dev)
+    gg = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.2).to(dev)
+    if swap:
+        f, gg = gg, f
+    v = (torch.rand(b, n, d, generator=g) * 2 - 1).to(dev)
+    go = torch.randn(b, nq, d, generator=g).to(dev)
+    f3, g3, qv, kv = S.shift9_inputs(f, gg, 0.01, True)
+    rows = slice(nq, 2 * nq)
+    f3, qv = f3[:, rows].contiguous(), qv[:, rows].contiguous()
+    label = (f"shift9 SP shard m {m}: nq {nq} x nk {n}, B1 C{c} D{d}"
+             + (", roles swapped" if swap else ""))
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    po, plse = S.shift9_core_plain(f3, g3, v, qv, kv, w)
+    torch.cuda.synchronize()
+    err, lerr = _maxerr(o, po), _maxerr(lse, plse)
+    _check(err <= 1e-4 and lerr <= 1e-3,
+           f"{label} forward: o err {err:.3g} <= 1e-4, lse err {lerr:.3g} "
+           f"<= 1e-3")
+    del po, plse
+    dd = (go * o).sum(-1)
+    args = (f3, g3, v, qv, kv, lse, go, dd, w)
+    got = S.shift9_bwd_kernel(*args)
+    exact = S.shift9_bwd_plain(*(a.double() if torch.is_tensor(a) else a
+                                 for a in args))
+    torch.cuda.synchronize()
+    scales = [float(r.abs().max()) for r in exact]
+    errs = [_maxerr(a, r) for a, r in zip(got, exact)]
+    del exact
+    torch.cuda.empty_cache()
+    _check(all(e <= BWD_REL_TOL * sc for e, sc in zip(errs, scales)),
+           f"{label} backward kernel vs the f64 plain version: max err / "
+           "max |out| " + ", ".join(f"{nm} {e / sc:.3g}" for nm, e, sc in
+                                    zip(BWD_NAMES, errs, scales))
+           + f" <= {BWD_REL_TOL:g}")
+    again = S.shift9_bwd_kernel(*args)
+    _check(all(torch.equal(a, r) for a, r in zip(got, again)),
+           f"{label} backward: two launches give the same bits")
+    del again
+    fwd_ms = time_ms(lambda: S.shift9_core_kernel(f3, g3, v, qv, kv, w))
+    bwd_ms = time_ms(lambda: S.shift9_bwd_kernel(*args), runs=5)
+    fwd_plain = time_ms(lambda: S.shift9_core_plain(f3, g3, v, qv, kv, w),
+                        runs=3)
+    bwd_plain = time_ms(lambda: S.shift9_bwd_plain(*args), runs=3)
+    torch.cuda.empty_cache()
+    q, k = descriptor(f)[:, rows].contiguous(), descriptor(gg)
+    lerr = _maxerr(sdpa(q, k, v, CORR_TAU), o)
+    _check(lerr <= 1e-4, f"{label} yardstick: SDPA on the unfolded "
+           f"descriptors vs the kernel: max err {lerr:.3g} <= 1e-4")
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, CORR_TAU), runs=5)
+    backend = sdpa_backend(lambda: sdpa(q, k, v, CORR_TAU))
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(qr, kr, vr, CORR_TAU), (qr, kr, vr), go), runs=5)
+    del q, k, qr, kr, vr
+    torch.cuda.empty_cache()
+    c3 = 3 * c
+    fwd_flops = 2.0 * b * nq * n * (c3 + d)
+    bwd_flops = 2.0 * b * nq * n * (3 * c3 + 2 * d)
+    fb = tc_bound(_nbytes(f3, g3, v, qv, kv) + b * nq * (d + 1) * 4,
+                  fwd_flops)
+    bb = tc_bound(_nbytes(*args[:-1]) + _nbytes(*got), bwd_flops)
+    lib = f"F.scaled_dot_product_attention f32 on the unfolded C = 2304 " \
+          f"descriptors, {backend}"
+    print(f"     {label}: forward {fwd_ms:.3f} ms (square B1 128x128 "
+          f"{square[0]:.3f}), plain {fwd_plain:.3f}, SDPA {lib_fwd:.3f}, "
+          f"bound {fb[0]:.3f} ({fb[1]}: {fwd_flops / 1e9:.1f} GFLOP x "
+          f"{SPLIT_PASSES} bf16 passes; 3xTF32 {fb[2]:.3f}); backward "
+          f"{bwd_ms:.3f} ms (square {square[1]:.3f}), plain {bwd_plain:.3f},"
+          f" SDPA forward + backward {lib_bwd:.3f}, bound {bb[0]:.3f} "
+          f"({bwd_flops / 1e9:.1f} GFLOP x {SPLIT_PASSES}; 3xTF32 "
+          f"{bb[2]:.3f})", flush=True)
+    fwd = dict(max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain,
+               bound_ms=fb[0], bound_by=fb[1], library_ms=lib_fwd,
+               library=lib + ", forward", tf32x3_bound_ms=fb[2],
+               fma_bound_ms=fb[3])
+    bwd = dict(max_abs_err=max(errs), ms=bwd_ms, plain_ms=bwd_plain,
+               bound_ms=bb[0], bound_by=bb[1], library_ms=lib_bwd,
+               library=lib + ", forward + backward", tf32x3_bound_ms=bb[2],
+               fma_bound_ms=bb[3])
+    return fwd, bwd
+
+
+def square_b1_ms(S, g):
+    """(forward, backward) ms of the square shift9 kernels at B1 128 x 128,
+    C 256, D 154: the single-card form of the SP shards."""
+    dev = "cuda"
+    b, h, w, c, d = 1, SP_HW, SP_HW, SP_C, SP_D
+    f = torch.randn(b, h, w, c, generator=g).to(dev)
+    gg = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.2).to(dev)
+    v = (torch.rand(b, h * w, d, generator=g) * 2 - 1).to(dev)
+    f3, g3, qv, kv = S.shift9_inputs(f, gg, 0.01, True)
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    go = torch.randn(b, h * w, d, generator=g).to(dev)
+    args = (f3, g3, v, qv, kv, lse, go, (go * o).sum(-1), w)
+    out = (time_ms(lambda: S.shift9_core_kernel(f3, g3, v, qv, kv, w)),
+           time_ms(lambda: S.shift9_bwd_kernel(*args), runs=5))
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_inference_opt(cfg, model):
+    """The flagship inference configuration at 512 px, batch 1, f32: the
+    README's --mesh_model N inference (README.md:103-115)."""
+    return inference_opt(cfg, 3).replace(crop_size=512, load_size=512,
+                                         batchSize=1, compute_dtype="f32",
+                                         mesh_model=model)
+
+
+def sp_train_opt(cfg, data, model):
+    """The flagship training configuration (ngf 64, ndf 64, 151 classes,
+    EMA, weight_mask 100) at 128 px, global batch 2, f32."""
+    return train_opt(cfg, crop_size=128, load_size=128, batchSize=2,
+                     compute_dtype="f32", mesh_data=data, mesh_model=model)
+
+
+def sp_nets(P, opt, seed):
+    """The nets of `opt` on the card, every net's weights at unit signal
+    scale from `seed` alone: each process of a job draws the same."""
+    nets = P.Pix2PixNets(opt, device="cuda", seed=seed)
+    for i, net in enumerate(nets.modules()):
+        condition_weights(net, torch.Generator().manual_seed(seed + i),
+                          "cuda")
+    return nets
+
+
+def sp_batch(opt, seed):
+    """The run's global batch from `seed`; self_ref [1, 0] at batch 2, so
+    the batch-coupled loss terms need the global batch's sums."""
+    batch = make_batch(torch.Generator().manual_seed(seed), opt.batchSize,
+                       opt.crop_size, opt.crop_size, opt.semantic_nc)
+    batch["self_ref"][1:] = 0.0
+    return batch
+
+
+def sp_runs(P, cfg, TS, ST, data, model):
+    """On this process's rank of the registered mesh (data x model): the
+    512 px inference (model > 1, or the reference at data = model = 1) and
+    one 128 px train step, each on this rank's data shard, with the kernels'
+    launches of each (counts set to 0 just before). Returns the fakes, the
+    losses, the parameters after the step (on the host) and the launches."""
+    from cocosnet_tpu_torch import mesh as M
+    mesh = M.global_mesh()
+    counted = _counted()
+    out = {}
+    if data == 1:
+        opt = sp_inference_opt(cfg, model)
+        nets = sp_nets(P, opt, 50)
+        batch = sp_batch(opt, 60)
+        _zero_counts(counted)
+        fake = ST.make_inference_step(nets)(batch)["fake_image"]
+        torch.cuda.synchronize()
+        out["infer_launches"] = {k: fn.launches for k, fn in counted.items()}
+        out["infer_fake"] = fake.cpu()
+        del nets, fake
+        torch.cuda.empty_cache()
+    opt = sp_train_opt(cfg, data, model)
+    nets = sp_nets(P, opt, 70)
+    batch = sp_batch(opt, 80)
+    b = opt.batchSize // mesh.data
+    shard = {k: v[mesh.data_rank * b:(mesh.data_rank + 1) * b]
+             for k, v in batch.items()}
+    p0 = {net: {k: t.detach().cpu().clone() for k, t in
+                getattr(nets, net).named_parameters()} for net in TRAINED}
+    state = TS.create_train_state(opt, nets)
+    _zero_counts(counted)
+    losses, visuals = ST.make_train_step(nets)(state, shard,
+                                               TS.lrs_for_epoch(opt, 1))
+    torch.cuda.synchronize()
+    out["train_launches"] = {k: fn.launches for k, fn in counted.items()}
+    out["losses"] = {k: float(v) for k, v in losses.items()}
+    out["train_fake"] = visuals["fake_image"].cpu()
+    if mesh.size == 1:   # every rank's start, drawn from the same seed
+        out["p0"] = p0
+    out["p1"] = {net: {k: t.detach().cpu().clone() for k, t in
+                       getattr(nets, net).named_parameters()}
+                 for net in TRAINED}
+    return out
+
+
+def sp_worker(rank, world, init, data, model, tmp):
+    """One rank of phase 11's jobs: gloo on the one card (the processes
+    share it), the mesh registered, sp_runs saved for the parent."""
+    import torch.distributed as dist
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cocosnet_tpu_torch import config as cfg
+    from cocosnet_tpu_torch import mesh as M
     from cocosnet_tpu_torch import pix2pix as P
     from cocosnet_tpu_torch.nn import layers as L
-    from cocosnet_tpu_torch.ops import _build
-    from cocosnet_tpu_torch.ops import conv3x3 as C
-    from cocosnet_tpu_torch.ops import corr as Kc
-    from cocosnet_tpu_torch.ops import corr_bigc as KB
-    from cocosnet_tpu_torch.ops import correlation as TC
-    from cocosnet_tpu_torch.ops import shift9 as S
     from cocosnet_tpu_torch.train import state as TS
     from cocosnet_tpu_torch.train import steps as ST
-
-    # phase 1: environment and build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
-    t_start = t0 = time.perf_counter()
-    _build.build_all()
-    for name in _build.SOURCES:
-        _build.library(name)
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
-    _phase_done(1, t_start)
-
-    # phase 2: each kernel against its plain version at flagship shapes
+    torch.cuda.set_device(0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator().manual_seed(0)
-    g_widths = torch.Generator().manual_seed(12)
+    L.set_compute_dtype(None)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    M.set_global_mesh(M.create_mesh(data, model))
+    try:
+        res = sp_runs(P, cfg, TS, ST, data, model)
+    finally:
+        M.shutdown()
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def sp_job(data, model, tmp) -> list:
+    """sp_runs of every rank of a data x model job of processes sharing the
+    card over gloo (a file:// rendezvous under tmp); their results."""
+    import torch.multiprocessing as mp
+    world = data * model
+    init = "file://" + os.path.join(tmp, f"store_{data}x{model}")
+    mp.start_processes(sp_worker, args=(world, init, data, model, tmp),
+                       nprocs=world, join=True, start_method="spawn")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+            for r in range(world)]
+
+
+def _allclose(a, b, rtol, atol) -> float:
+    """The largest |a - b| / (atol + rtol |b|): within the bound at <= 1."""
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+def parallelism(P, cfg, TS, ST) -> dict:
+    """Phase 11, parts 2-4: the 512 px SP inference and the 128 px train
+    step with the query rows over two model ranks, the train step over two
+    data ranks (two processes sharing the card over gloo each time), held
+    against one process on the same weights and batch; then a one-rank
+    NCCL group. Returns the model job's launches (per rank) of each."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cocosnet_tpu_torch import mesh as M
+    M.set_global_mesh(None)
+    one = sp_runs(P, cfg, TS, ST, 1, 1)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    t0 = time.perf_counter()
+    model_job = sp_job(1, 2, tmp)
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data_job = sp_job(2, 1, tmp)
+    t_data = time.perf_counter() - t0
+    print(f"     the 1 x 2 job took {t_model:.1f} s, the 2 x 1 job "
+          f"{t_data:.1f} s (two processes each, spawned, on the one card)",
+          flush=True)
+    for r, res in enumerate(model_job):
+        worst = _allclose(res["infer_fake"], one["infer_fake"], 1e-4, 2e-4)
+        _check(worst <= 1 and res["infer_launches"]["attend_shift9"] == 1,
+               f"SP inference 512 px B1 f32, model rank {r} of 2: fake vs "
+               f"one process at atol 2e-4 / rtol 1e-4 (worst "
+               f"{worst:.3g} of the bound); one rectangular shift9 forward "
+               f"a rank ({res['infer_launches']['attend_shift9']})")
+        lw = max(_allclose(torch.tensor(res["losses"][k]),
+                           torch.tensor(v), 2e-2, 5e-3)
+                 for k, v in one["losses"].items())
+        pw = max(_allclose(res["p1"]["corr"][k], v, 2e-2, 5e-4)
+                 for k, v in one["p1"]["corr"].items())
+        tl = res["train_launches"]
+        _check(lw <= 1 and pw <= 1 and tl["attend_shift9"] == 1
+               and tl["attend_shift9_backward"] == 1,
+               f"SP train step 128 px B2 f32, model rank {r} of 2 vs one "
+               f"process: losses at rtol 2e-2 / atol 5e-3 (worst {lw:.3g} of "
+               f"the bound), corr's parameters after the step at rtol 2e-2 "
+               f"/ atol 5e-4 (worst {pw:.3g}); shift9 forward and backward "
+               f"launches a rank {tl['attend_shift9']}, "
+               f"{tl['attend_shift9_backward']}")
+        ups = {net: _rel_l2(res["p1"][net], one["p1"][net], one["p0"][net])
+               for net in TRAINED}
+        _check(max(ups.values()) <= 0.1,
+               f"SP train step, model rank {r}: each net's update p1 - p0 "
+               f"vs one process's, relative L2 <= 0.1: " + ", ".join(
+                   f"{k} {v:.3g}" for k, v in ups.items()))
+    for r, res in enumerate(data_job):
+        lw = max(abs(res["losses"][k] - v) / (abs(v) + 1e-2)
+                 for k, v in one["losses"].items())
+        fw = _maxerr(res["train_fake"], one["train_fake"][r:r + 1])
+        ups = {net: _rel_l2(res["p1"][net], one["p1"][net], one["p0"][net])
+               for net in TRAINED}
+        _check(lw <= 2e-3 and fw <= 2e-4 and max(ups.values()) <= 0.1,
+               f"data-parallel train step 128 px, data rank {r} of 2 (global "
+               f"B2) vs one process at B2: losses rel {lw:.3g} <= 2e-3, its "
+               f"shard's fake {fw:.3g} <= 2e-4, each net's update relative "
+               f"L2 <= 0.1 (" + ", ".join(f"{k} {v:.3g}"
+                                          for k, v in ups.items()) + ")")
+    for job, what in ((model_job, "model"), (data_job, "data")):
+        same = all(torch.equal(job[0]["p1"][n][k], job[1]["p1"][n][k])
+                   for n in TRAINED for k in job[0]["p1"][n])
+        _check(same, f"the {what} job's two ranks end the step with the same "
+               f"parameters, bit for bit")
+    # the backend choice where each rank has a card of its own: NCCL, one
+    # rank (this machine has one card)
+    backend = M.backend_for(torch.device("cuda"))
+    M.init_process_group(backend, "file://" + os.path.join(tmp, "nccl"), 0,
+                         1, 60)
+    try:
+        t = torch.arange(4.0, device="cuda")
+        dist.all_reduce(t)
+        gathered = [torch.empty_like(t)]
+        dist.all_gather(gathered, t)
+        torch.cuda.synchronize()
+        _check(backend == "nccl" and dist.get_backend() == "nccl"
+               and t.tolist() == [0.0, 1.0, 2.0, 3.0]
+               and torch.equal(gathered[0], t),
+               f"a one-rank {dist.get_backend()} group on the card: "
+               f"all_reduce and all_gather of a CUDA tensor")
+    finally:
+        dist.destroy_process_group()
+    print("     NCCL across cards is not run: this machine has "
+          f"{torch.cuda.device_count()} card; the data and model jobs above "
+          "share it over gloo", flush=True)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"infer": model_job[0]["infer_launches"],
+            "train": model_job[0]["train_launches"]}
+
+
+def kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g, g_widths) -> dict:
+    """Phase 2: each kernel against its plain version at the shapes of its
+    paths, timed; the inputs drawn from g, those of the shift9 backward at
+    the other configurations' warp widths from g_widths (a generator of its
+    own: every later check of g draws what it drew before them). Returns
+    the kernels' records by name."""
     rows = {}
     for pono_c in (True, False):
         r = check_shift9(S, g, pono_c=pono_c)
@@ -2646,6 +3065,46 @@ def main() -> None:
     check_bigc(Kc, TC, g, b=2, n=2500, m=2304, timed=False)
     check_bigc_bwd(Kc, KB, TC, g, b=2, n=2500, m=2304, timed=False)
     torch.cuda.empty_cache()
+    return rows
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        _fail("no CUDA device: this smoke test runs only on a GPU")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cocosnet_tpu_torch import config as cfg
+    from cocosnet_tpu_torch import pix2pix as P
+    from cocosnet_tpu_torch.nn import layers as L
+    from cocosnet_tpu_torch.ops import _build
+    from cocosnet_tpu_torch.ops import conv3x3 as C
+    from cocosnet_tpu_torch.ops import corr as Kc
+    from cocosnet_tpu_torch.ops import corr_bigc as KB
+    from cocosnet_tpu_torch.ops import correlation as TC
+    from cocosnet_tpu_torch.ops import shift9 as S
+    from cocosnet_tpu_torch.train import state as TS
+    from cocosnet_tpu_torch.train import steps as ST
+
+    # phase 1: environment and build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    t_start = t0 = time.perf_counter()
+    _build.build_all()
+    for name in _build.SOURCES:
+        _build.library(name)
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    _phase_done(1, t_start)
+
+    # phase 2: each kernel against its plain version at flagship shapes
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    rows = kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g,
+                         torch.Generator().manual_seed(12))
     _phase_done(2, t_start)
 
     # phase 3: the small-input slices against the plain versions
@@ -2728,6 +3187,27 @@ def main() -> None:
     runs.update(config_trainings(P, cfg, L, TS, ST, g))
     _phase_done(10, t_start)
 
+    # phase 11: data and spatial parallelism. The rectangular shift9
+    # kernels at the 512 px shards of 2 and 4 model ranks (and the column
+    # warp's call, roles swapped), then two processes sharing the card over
+    # gloo: the SP inference and train step at mesh_model 2, the train
+    # step at mesh_data 2, each against one process; a one-rank NCCL group
+    t11 = time.perf_counter()
+    g_sp = torch.Generator().manual_seed(13)
+    square = square_b1_ms(S, g_sp)
+    for m in (2, 4):
+        for swap in (False, True):
+            tag = f" SP m{m}" + (" swapped" if swap else "")
+            rows["attend_shift9" + tag], rows["attend_shift9_backward" + tag] \
+                = check_shift9_rect(S, g_sp, m=m, swap=swap, square=square)
+    print(f"phase 11 kernels done in {time.perf_counter() - t11:.0f} s",
+          flush=True)
+    sp = parallelism(P, cfg, TS, ST)
+    runs["SP inference, mesh_model 2"] = sp["infer"]
+    runs["SP train step, mesh_model 2"] = sp["train"]
+    print(f"phase 11 took {time.perf_counter() - t11:.0f} s", flush=True)
+    _phase_done(11, t_start)
+
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)
     src = {"attend_shift9": ("cocosnet_tpu_torch/csrc/shift9_fwd.cu",
@@ -2790,6 +3270,19 @@ def main() -> None:
             source=src["attend_shift9_backward"][0],
             replaces=src["attend_shift9_backward"][1], path=path,
             launches=runs[path]["attend_shift9_backward"], **rows[name]))
+    # phase 11's rows: the rectangular kernels at the SP shards, with the
+    # launches a model rank made of each in the 512 px inference (the
+    # forward) and the train step (the backward) at mesh_model 2
+    for m in (2, 4):
+        for swap in ("", " swapped"):
+            for base, path in (
+                    ("attend_shift9", "SP inference, mesh_model 2"),
+                    ("attend_shift9_backward", "SP train step, mesh_model 2")):
+                name = f"{base} SP m{m}{swap}"
+                kernels.append(dict(
+                    name=name, route="cuda", source=src[base][0],
+                    replaces=src[base][1], path=path,
+                    launches=runs[path][base], **rows[name]))
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.0f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

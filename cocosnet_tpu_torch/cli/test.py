@@ -12,6 +12,13 @@ exemplar / output comparison grid output/test/<name>/<i>.png, or with
 --save_per_img each output as output/test_per_img/<name>/<image name>, as
 test.py does (reference test.py:27-69). Runs on the GPU; --platform cpu
 runs the kernels' plain versions on the CPU.
+
+--mesh_model N (the 512 px single-image inference of the README) shares
+the correlation's query rows over N ranks, and --mesh_data the batch, one
+worker process a card as the train twin runs them (cli/common.run_job):
+each data rank loads its shard of each batch (the last one padded with
+duplicates), and rank 0 writes the global batch's images, as test.py's
+one process does.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from cocosnet_tpu_torch import mesh as M
 from cocosnet_tpu_torch import pix2pix as P
 from cocosnet_tpu_torch.cli import common
 from cocosnet_tpu_torch.config import parse_options
@@ -45,12 +53,24 @@ class InferenceRun:
     first_fake: Optional[np.ndarray] = None
 
 
-def main(argv=None) -> InferenceRun:
-    opt = parse_options(argv, is_train=False)
-    device = common.device_for(opt.platform)
+def parse(argv):
+    return parse_options(argv, is_train=False)
+
+
+def main(argv=None):
+    """The run in this process (its InferenceRun), or in the workers the
+    mesh flags ask for (None: rank 0 printed and wrote the images)."""
+    opt = parse(argv)
+    return common.run_job("cocosnet_tpu_torch.cli.test:test_loop", argv, opt,
+                          all_devices=False)
+
+
+def test_loop(opt, device, mesh: M.Mesh) -> InferenceRun:
+    """The inference loop on this rank of `mesh`."""
+    rank0 = mesh.rank == 0
     common.set_numerics(opt)
 
-    dataloader = create_dataloader(opt)
+    dataloader = create_dataloader(opt, mesh.data_rank, mesh.data)
     nets = P.Pix2PixNets(opt, device=device, seed=opt.seed)
 
     ckpt_dir = os.path.join(opt.checkpoints_dir, opt.name)
@@ -76,12 +96,19 @@ def main(argv=None) -> InferenceRun:
         if i * opt.batchSize >= opt.how_many:
             break
         arrays, paths = to_device(batch, device)
-        fake = common.host(inference_step(arrays)["fake_image"])
+        fake = inference_step(arrays)["fake_image"]
+        if mesh.data > 1:   # the global batch, in data-rank order
+            fake = M.gather_data(fake)
+            batch = common.global_batch(batch)
+            paths = {k: batch[k] for k in paths}
+        fake = common.host(fake)
         if i == 0:
             run.first_batch, run.first_fake = batch, fake
         run.images += fake.shape[0]
         run.batches += 1
 
+        if not rank0:
+            continue
         if opt.save_per_img:
             root = os.path.join(save_root, "test_per_img", opt.name)
             imgs = (fake + 1.0) / 2.0

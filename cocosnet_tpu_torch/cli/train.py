@@ -16,9 +16,19 @@ D-only step on the last fake where i % D_steps_per_G != 0
 the learning rates of train.state.lrs_for_epoch each epoch, and a NaN loss
 saves `nan_debug` and stops. --continue_train --which_epoch resumes from
 that checkpoint and from iter.txt. Runs on the GPU; --platform cpu runs
-the kernels' plain versions on the CPU. Single process: --distributed,
---mesh_data / --mesh_model > 1 and --steps_per_dispatch > 1 (the JAX
-package's multi-step dispatch) are refused. The nets hold their weights,
+the kernels' plain versions on the CPU. --steps_per_dispatch > 1 (the JAX
+package's multi-step dispatch) is refused.
+
+Parallelism, as train.py's mesh (cocosnet_tpu_torch/mesh.py): every
+visible card joins the data axis unless --mesh_data says how many;
+--mesh_model N shares the correlation's query rows over N ranks; one
+worker process a card, spawned here (--platform cpu: one a rank, over
+gloo), or started by torchrun; --distributed with --coordinator_address,
+--num_processes (hosts) and --process_id joins the hosts. --batchSize is
+the global batch: each data rank loads its shard. Every rank starts from
+the same seed, and after a resume takes rank 0's state; rank 0 alone
+prints, writes loss_log.txt, the visuals (of the global batch) and the
+checkpoints (after a barrier). The nets hold their weights,
 so no batch is taken before the loop to build them (train.py takes one,
 which draws a shuffle): the first epoch runs the loader's first shuffle,
 as the reference's train.py does.
@@ -34,6 +44,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from cocosnet_tpu_torch import mesh as M
 from cocosnet_tpu_torch import pix2pix as P
 from cocosnet_tpu_torch.cli import common
 from cocosnet_tpu_torch.config import parse_options, save_options
@@ -63,25 +74,37 @@ class TrainRun:
 
 
 def check_loop_ported(opt) -> None:
-    """Raises on the loop options the twin does not run: it is one process
-    and takes one step a dispatch."""
-    bad = {k: v for k, v in (("steps_per_dispatch", opt.steps_per_dispatch),
-                             ("mesh_data", opt.mesh_data)) if v > 1}
-    if opt.distributed:
-        bad["distributed"] = True
-    if bad:
-        raise NotImplementedError(f"not ported yet: {bad}")
+    """Raises on the loop options the twin does not run: it takes one step
+    a dispatch."""
+    if opt.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            f"not ported yet: {{'steps_per_dispatch': "
+            f"{opt.steps_per_dispatch}}}")
 
 
-def main(argv=None) -> TrainRun:
-    opt = parse_options(argv, is_train=True)
-    device = common.device_for(opt.platform)
+def parse(argv):
+    return parse_options(argv, is_train=True)
+
+
+def main(argv=None):
+    """The run in this process (its TrainRun), or in the workers the mesh
+    flags ask for (None: rank 0 printed and wrote what it does)."""
+    opt = parse(argv)
     check_loop_ported(opt)
-    common.set_numerics(opt)
-    save_options(opt, os.path.join(opt.checkpoints_dir, opt.name, "opt.json"))
+    return common.run_job("cocosnet_tpu_torch.cli.train:train_loop", argv, opt)
 
-    dataloader = create_dataloader(opt)
-    progress = TrainProgress(opt, len(dataloader.dataset))
+
+def train_loop(opt, device, mesh: M.Mesh) -> TrainRun:
+    """The training loop on this rank of `mesh`."""
+    rank0 = mesh.rank == 0
+    common.set_numerics(opt)
+    if rank0:
+        save_options(opt, os.path.join(opt.checkpoints_dir, opt.name,
+                                       "opt.json"))
+
+    dataloader = create_dataloader(opt, mesh.data_rank, mesh.data)
+    progress = TrainProgress(opt, len(dataloader.dataset),
+                             write_record=rank0)
     nets = P.Pix2PixNets(opt, device=device, seed=opt.seed)
 
     # pretrained VGG for the perceptual losses
@@ -99,6 +122,8 @@ def main(argv=None) -> TrainRun:
             print(f"resumed train state from {opt.which_epoch}")
         except FileNotFoundError as e:
             print(f"could not resume ({e}); starting fresh")
+        # every rank read the same files; rank 0's state is the run's
+        M.broadcast_from_rank0(_state_tensors(nets, state))
 
     train_step = ST.make_train_step(nets)
     d_only_step = ST.make_d_step(nets) if opt.D_steps_per_G > 1 else None
@@ -108,7 +133,9 @@ def main(argv=None) -> TrainRun:
                    nets=nets, state=state)
 
     def save(label):
-        C.save_state(opt, state, nets, label)
+        M.barrier()
+        if rank0:
+            C.save_state(opt, state, nets, label)
 
     def nan_bail(epoch):
         save("nan_debug")
@@ -145,15 +172,17 @@ def main(argv=None) -> TrainRun:
                 nan_bail(epoch)
             run.losses = dict(zip(metrics, values.tolist()))
 
-            if events.print_losses:
+            if events.print_losses and rank0:
                 print_current_errors(
                     opt, epoch, progress.epoch_iter,
                     {**run.losses, "img/s": throughput.step(opt.batchSize)},
                     progress.time_per_img)
             if events.display_visuals and visuals:
+                batch, visuals = _global_visuals(batch, visuals)
                 try:
-                    _save_visuals(opt, batch, visuals, epoch,
-                                  progress.images_seen, save_root)
+                    if rank0:
+                        _save_visuals(opt, batch, visuals, epoch,
+                                      progress.images_seen, save_root)
                 except OSError as err:
                     print(err)
             if events.save_latest:
@@ -170,6 +199,29 @@ def main(argv=None) -> TrainRun:
 
     print("Training was successfully finished.")
     return run
+
+
+def _state_tensors(nets, state) -> List[torch.Tensor]:
+    """Every tensor of the run's state on the nets' device: the nets'
+    parameters and buffers (spectral u/v), the EMA shadows and the
+    optimizers' moments (Adam keeps its step counts on the host; they are
+    equal on every rank)."""
+    out = [t for net in nets.modules() for t in net.state_dict().values()]
+    out += list((state.ema or {}).values())
+    for o in (state.opt_g, state.opt_d):
+        for st in o.state.values():
+            out += [t for t in st.values() if torch.is_tensor(t)]
+    return [t for t in out if t.device.type == nets.device.type]
+
+
+def _global_visuals(batch, visuals):
+    """The global batch's host arrays and visuals, gathered over the data
+    ranks (every rank calls it; the batch and visuals themselves on one
+    data rank)."""
+    if M.global_mesh().data == 1:
+        return batch, visuals
+    return (common.global_batch(batch),
+            {k: M.gather_data(v) for k, v in visuals.items()})
 
 
 def _save_visuals(opt, batch, visuals, epoch, step, save_root) -> None:

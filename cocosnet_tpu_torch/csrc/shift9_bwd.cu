@@ -18,8 +18,9 @@
 //              dkadd = sum_i da.
 //
 // Bound on the H100: operations. The function needs S3 = F3 G3^T and dP
-// once each, then dF3, dG3 and dV: 2 B N^2 (3 3C + 2 D) flops (701.2 GFLOP
-// at B = 8, N = 4096, 3C = 768, D = 154) against O(B N (3C + D)) bytes. tau
+// once each, then dF3, dG3 and dV: 2 B Nq Nk (3 3C + 2 D) flops (701.2
+// GFLOP at B = 8, Nq = Nk = 4096, 3C = 768, D = 154) against O(B (Nq + Nk)
+// (3C + D)) bytes. tau
 // = 0.01 amplifies logit error 100x, so no product runs in one TF32 or
 // bf16 pass; the cheapest split that holds the tolerance is bf16x3 (three
 // passes at 989 TFLOP/s: 2.127 ms). This kernel issues 3xTF32 (three
@@ -37,11 +38,11 @@
 //      diagonal neighbours; the logits, P, gl and da are formed in
 //      registers with the operations and roundings of shift9_bwd_plain, in
 //      its order; da goes to shared memory, and dS3 and P of the owned
-//      positions are
-//      written to scratch (B, Np, Np) f32 (N rounded up to 128; positions
-//      past N hold zeros). The per-position side gradients are summed over
-//      the tile's keys (per query) and queries (per key) in a fixed order
-//      and written as per-tile partials (B, tiles, N, 3);
+//      positions are written to scratch (B, Nqp, Nkp) f32 (each count
+//      rounded up to 128; positions past Nq or Nk hold zeros). The
+//      per-position side gradients are summed over the tile's keys (per
+//      query) and queries (per key) in a fixed order and written as
+//      per-tile partials (B, tiles, N, 3) of each side;
 //   2. reduce: each position's partials summed over the tiles in order,
 //      then divided by qs (ks) and negated as the formulas above want;
 //   3. dF3 = dS3 G3   (dS3 read K-major),
@@ -50,9 +51,17 @@
 //      launches 2-4 of corr_bwd.cu at 3C and D.
 // Positions are flattened row-major, so a halo position past the end of an
 // image row is exactly the one the column mask zeroes, and positions
-// outside [0, N) load as zeros and carry no gradient: every image width W
-// works. F3, G3, gO and V arrive with 3C and D rounded up to a multiple of
-// 4 (16-byte rows, zero filled); the wrapper makes the copy where needed.
+// outside [0, Nq) or [0, Nk) load as zeros and carry no gradient: every
+// image width W works. F3, G3, gO and V arrive with 3C and D rounded up to
+// a multiple of 4 (16-byte rows, zero filled); the wrapper makes the copy
+// where needed.
+// The query and the key counts may differ (Nq rows of F3, gO, lse and dd,
+// Nk of G3 and V; pallas_shift9._bwd takes nq != nk): the spatial-parallel
+// correlation (ops/corr_sp.py) runs one query shard against every key.
+// The tiles then cover (Nq, Nk) rectangles, the scratch is (B, Nqp, Nkp)
+// with each side padded to 128, each side's flags and bounds read its own
+// count, the query partials count the key tiles and the key partials the
+// query tiles, dF3 contracts over Nkp and dG3 and dV over Nqp.
 // No atomics: every output element is summed by one thread in one order,
 // so two launches give the same bits.
 
@@ -88,19 +97,20 @@ __device__ __forceinline__ int flags(int pos, int N, int W) {
          (col != 0 ? MINUS : 0);
 }
 
-// Launch 1. Grid (tiles, tiles, B), tile t owning positions [OWN t, OWN t
-// + OWN) of the keys (x) and the queries (y). f3, g3: (B, N, C3p), go, v:
-// (B, N, Dp); qv, kvt: (B, N, 4) rank-1 terms per position (s, mul, add,
-// add2); lse, dd: (B, N); p, ds: (B, Np, Np); qpart, kpart: (B, tiles, N,
-// 3) (sum gl logits, sum da mul, sum da).
+// Launch 1. Grid (ntk, ntq, B), tile t owning positions [OWN t, OWN t +
+// OWN) of the keys (x) and the queries (y). f3: (B, Nq, C3p), g3: (B, Nk,
+// C3p), go: (B, Nq, Dp), v: (B, Nk, Dp); qv: (B, Nq, 4), kvt: (B, Nk, 4)
+// rank-1 terms per position (s, mul, add, add2); lse, dd: (B, Nq); p, ds:
+// (B, Nqp, Nkp); qpart: (B, ntk, Nq, 3), kpart: (B, ntq, Nk, 3) (sum gl
+// logits, sum da mul, sum da).
 __global__ void __launch_bounds__(NT, 1) shift9_bwd_scores_kernel(
     const float* __restrict__ f3, const float* __restrict__ g3,
     const float* __restrict__ go, const float* __restrict__ v,
     const float* __restrict__ qv, const float* __restrict__ kvt,
     const float* __restrict__ lse, const float* __restrict__ dd,
     float* __restrict__ p, float* __restrict__ ds,
-    float* __restrict__ qpart, float* __restrict__ kpart, int N, int C3p,
-    int Dp, int Np, int W, int nt) {
+    float* __restrict__ qpart, float* __restrict__ kpart, int Nq, int Nk,
+    int C3p, int Dp, int Nqp, int Nkp, int W, int ntq, int ntk) {
   extern __shared__ __align__(16) float smem[];
   float* rowp = smem;                  // [4][TILE][3]: per column warp
   float* colp = rowp + 4 * TILE * 3;   // [2][TILE][3]: per row warp
@@ -112,25 +122,24 @@ __global__ void __launch_bounds__(NT, 1) shift9_bwd_scores_kernel(
 
   const int b = blockIdx.z;
   const int ia = blockIdx.y * OWN - 2, ja = blockIdx.x * OWN - 2;
-  const size_t off3 = (size_t)b * N * C3p, offd = (size_t)b * N * Dp;
-  f3 += off3;
-  g3 += off3;
-  go += offd;
-  v += offd;
-  qv += (size_t)b * N * 4;
-  kvt += (size_t)b * N * 4;
-  lse += (size_t)b * N;
-  dd += (size_t)b * N;
-  p += (size_t)b * Np * Np;
-  ds += (size_t)b * Np * Np;
-  qpart += (size_t)b * nt * N * 3;
-  kpart += (size_t)b * nt * N * 3;
+  f3 += (size_t)b * Nq * C3p;
+  g3 += (size_t)b * Nk * C3p;
+  go += (size_t)b * Nq * Dp;
+  v += (size_t)b * Nk * Dp;
+  qv += (size_t)b * Nq * 4;
+  kvt += (size_t)b * Nk * 4;
+  lse += (size_t)b * Nq;
+  dd += (size_t)b * Nq;
+  p += (size_t)b * Nqp * Nkp;
+  ds += (size_t)b * Nqp * Nkp;
+  qpart += (size_t)b * ntk * Nq * 3;
+  kpart += (size_t)b * ntq * Nk * 3;
 
   {
     const int r = threadIdx.x & (TILE - 1);
     const bool row = threadIdx.x < TILE;
     const int pos = (row ? ia : ja) + r;
-    const int f = flags(pos, N, W);
+    const int f = flags(pos, row ? Nq : Nk, W);
     const bool ok = f & VALID;
     const float* t4 = (row ? qv : kvt) + 4 * (size_t)(ok ? pos : 0);
     if (row) {
@@ -156,9 +165,9 @@ __global__ void __launch_bounds__(NT, 1) shift9_bwd_scores_kernel(
   zero(acc);
   mainloop<true, true, 4, true>(acc, smem, (C3p + BK - 1) / BK,
                                 [&](float* sA, float* sB, int k0) {
-                                  load_kmajor<TILE>(sA, f3, C3p, ia, N, k0,
+                                  load_kmajor<TILE>(sA, f3, C3p, ia, Nq, k0,
                                                     C3p);
-                                  load_kmajor<TILE>(sB, g3, C3p, ja, N, k0,
+                                  load_kmajor<TILE>(sB, g3, C3p, ja, Nk, k0,
                                                     C3p);
                                 });
 #pragma unroll
@@ -173,9 +182,10 @@ __global__ void __launch_bounds__(NT, 1) shift9_bwd_scores_kernel(
   zero(dp);
   mainloop<true, true, 4, true>(dp, smem, (Dp + BK - 1) / BK,
                                 [&](float* sA, float* sB, int k0) {
-                                  load_kmajor<TILE>(sA, go, Dp, ia, N, k0,
+                                  load_kmajor<TILE>(sA, go, Dp, ia, Nq, k0,
                                                     Dp);
-                                  load_kmajor<TILE>(sB, v, Dp, ja, N, k0, Dp);
+                                  load_kmajor<TILE>(sB, v, Dp, ja, Nk, k0,
+                                                    Dp);
                                 });
   __syncthreads();  // every warp is done with the ring; S3 is in
 
@@ -279,34 +289,34 @@ __global__ void __launch_bounds__(NT, 1) shift9_bwd_scores_kernel(
   __syncthreads();
 
   // dS3 and P of the owned positions (region rows and columns 2 .. TILE -
-  // 3) below Np, zero at positions past N; a column pair never straddles
-  // the owned range (both ends are even)
+  // 3) below Nqp and Nkp, zero at positions past Nq or Nk; a column pair
+  // never straddles the owned range (both ends are even)
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = rr0 + 16 * mi + g + 8 * h;
       const int i = ia + row;
-      if (row < 2 || row > TILE - 3 || i >= Np) continue;
+      if (row < 2 || row > TILE - 3 || i >= Nqp) continue;
       const int up = rf[row - 1], down = rf[row + 1];
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int col = cc0 + 8 * ni + 2 * t;
         const int j = ja + col;
-        if (col < 2 || col > TILE - 3 || j >= Np) continue;
+        if (col < 2 || col > TILE - 3 || j >= Nkp) continue;
         float sv[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = col + e;
           float x = 0.f;
-          if (i < N && j + e < N) {
+          if (i < Nq && j + e < Nk) {
             x = dp[mi][ni][2 * h + e];
             if (up & cf[c - 1] & PLUS) x += sbuf[(row - 1) * LDR + c - 1];
             if (down & cf[c + 1] & MINUS) x += sbuf[(row + 1) * LDR + c + 1];
           }
           sv[e] = x;
         }
-        const size_t at = (size_t)i * Np + j;
+        const size_t at = (size_t)i * Nkp + j;
         *reinterpret_cast<float2*>(ds + at) = make_float2(sv[0], sv[1]);
         *reinterpret_cast<float2*>(p + at) =
             make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
@@ -318,34 +328,36 @@ __global__ void __launch_bounds__(NT, 1) shift9_bwd_scores_kernel(
   for (int e = threadIdx.x; e < OWN * 3; e += NT) {
     const int r = 2 + e / 3, c = e % 3;
     const int i = ia + r, j = ja + r;
-    if (i < N)
-      qpart[((size_t)blockIdx.x * N + i) * 3 + c] =
+    if (i < Nq)
+      qpart[((size_t)blockIdx.x * Nq + i) * 3 + c] =
           rowp[r * 3 + c] + rowp[(TILE + r) * 3 + c] +
           rowp[(2 * TILE + r) * 3 + c] + rowp[(3 * TILE + r) * 3 + c];
-    if (j < N)
-      kpart[((size_t)blockIdx.y * N + j) * 3 + c] =
+    if (j < Nk)
+      kpart[((size_t)blockIdx.y * Nk + j) * 3 + c] =
           colp[r * 3 + c] + colp[(TILE + r) * 3 + c];
   }
 }
 
 // Launch 2. One thread per (side, sample, position): the per-tile partials
-// summed over the tiles in order; dq3, dk3: (B, N, 3) = (sum gl logits /
-// s, -sum da mul, sum da).
+// summed over the other side's tiles in order; dq3: (B, Nq, 3), dk3: (B,
+// Nk, 3) = (sum gl logits / s, -sum da mul, sum da).
 __global__ void shift9_bwd_reduce_kernel(
     const float* __restrict__ qpart, const float* __restrict__ kpart,
     const float* __restrict__ qv, const float* __restrict__ kvt,
-    float* __restrict__ dq3, float* __restrict__ dk3, int B, int N, int nt) {
+    float* __restrict__ dq3, float* __restrict__ dk3, int B, int Nq, int Nk,
+    int ntq, int ntk) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t bn = (size_t)B * N;
-  if (idx >= 2 * bn) return;
-  const bool key = idx >= bn;
-  const size_t r = key ? idx - bn : idx;
-  const size_t b = r / N, i = r % N;
-  const float* part = (key ? kpart : qpart) + (b * nt * N + i) * 3;
+  const size_t bq = (size_t)B * Nq;
+  if (idx >= bq + (size_t)B * Nk) return;
+  const bool key = idx >= bq;
+  const size_t r = key ? idx - bq : idx;
+  const int n = key ? Nk : Nq, nt = key ? ntq : ntk;
+  const size_t b = r / n, i = r % n;
+  const float* part = (key ? kpart : qpart) + (b * nt * n + i) * 3;
   float s[3] = {0.f, 0.f, 0.f};
   for (int tile = 0; tile < nt; ++tile)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) s[c] += part[(size_t)tile * N * 3 + c];
+    for (int c = 0; c < 3; ++c) s[c] += part[(size_t)tile * n * 3 + c];
   float* out = (key ? dk3 : dq3) + r * 3;
   out[0] = s[0] / (key ? kvt : qv)[r * 4];
   out[1] = -s[1];
@@ -357,55 +369,61 @@ int backward(const float* f3, const float* g3, const float* v,
              const float* go, const float* qv, const float* kvt,
              const float* lse, const float* dd, float* df3, float* dq3,
              float* dg3, float* dk3, float* dv, float* p, float* ds,
-             float* qpart, float* kpart, int B, int N, int C3, int D, int W,
-             cudaStream_t s) {
+             float* qpart, float* kpart, int B, int Nq, int Nk, int C3, int D,
+             int W, cudaStream_t s) {
   const int C3p = round_up(C3, 4), Dp = round_up(D, 4);
-  const int Np = round_up(N, TILE), nt = (Np + OWN - 1) / OWN;
-  const size_t nn = (size_t)Np * Np;
+  const int Nqp = round_up(Nq, TILE), Nkp = round_up(Nk, TILE);
+  const int ntq = (Nqp + OWN - 1) / OWN, ntk = (Nkp + OWN - 1) / OWN;
+  const size_t nn = (size_t)Nqp * Nkp;
   int e = set_smem(shift9_bwd_scores_kernel, SMEM_BYTES);
   if (e) return e;
-  shift9_bwd_scores_kernel<<<dim3(nt, nt, B), NT, SMEM_BYTES, s>>>(
-      f3, g3, go, v, qv, kvt, lse, dd, p, ds, qpart, kpart, N, C3p, Dp, Np,
-      W, nt);
+  shift9_bwd_scores_kernel<<<dim3(ntk, ntq, B), NT, SMEM_BYTES, s>>>(
+      f3, g3, go, v, qv, kvt, lse, dd, p, ds, qpart, kpart, Nq, Nk, C3p, Dp,
+      Nqp, Nkp, W, ntq, ntk);
   if ((e = static_cast<int>(cudaGetLastError()))) return e;
-  const size_t threads = 2 * (size_t)B * N;
+  const size_t threads = (size_t)B * (Nq + Nk);
   shift9_bwd_reduce_kernel<<<(unsigned)((threads + NT - 1) / NT), NT, 0, s>>>(
-      qpart, kpart, qv, kvt, dq3, dk3, B, N, nt);
+      qpart, kpart, qv, kvt, dq3, dk3, B, Nq, Nk, ntq, ntk);
   if ((e = static_cast<int>(cudaGetLastError()))) return e;
-  const size_t f_batch = (size_t)N * C3p, o_batch = (size_t)N * C3;
-  if ((e = gemm<Src, true, 4>(ds, Np, nn, g3, C3p, f_batch, N, C3p, df3, C3,
-                              o_batch, N, C3, Np, B, s)))
+  // dF3 = dS3 G3 over the keys, dG3 = dS3^T F3 and dV = P^T gO over the
+  // queries
+  if ((e = gemm<Src, true, 4>(ds, Nkp, nn, g3, C3p, (size_t)Nk * C3p, Nk,
+                              C3p, df3, C3, (size_t)Nq * C3, Nq, C3, Nkp, B,
+                              s)))
     return e;
-  if ((e = gemm<Src, false, 4>(ds, Np, nn, f3, C3p, f_batch, N, C3p, dg3, C3,
-                               o_batch, N, C3, Np, B, s)))
+  if ((e = gemm<Src, false, 4>(ds, Nkp, nn, f3, C3p, (size_t)Nq * C3p, Nq,
+                               C3p, dg3, C3, (size_t)Nk * C3, Nk, C3, Nqp, B,
+                               s)))
     return e;
-  return gemm<Src, false, NF_V>(p, Np, nn, go, Dp, (size_t)N * Dp, N, Dp, dv,
-                                D, (size_t)N * D, N, D, Np, B, s);
+  return gemm<Src, false, NF_V>(p, Nkp, nn, go, Dp, (size_t)Nq * Dp, Nq, Dp,
+                                dv, D, (size_t)Nk * D, Nk, D, Nqp, B, s);
 }
 
 }  // namespace shift9_bwd
 
-// Rows of the scratch's tile (the wrapper pads N to it) and the positions
-// a scores tile owns on each side (the partials hold ceil(Np / owned)
-// tiles).
+// Rows of the scratch's tile (the wrapper pads Nq and Nk to it) and the
+// positions a scores tile owns on each side (the partials hold ceil(Np /
+// owned) tiles of the other side, Np that side's padded count).
 extern "C" int cocosnet_shift9_bwd_tile() { return shift9_bwd::TILE; }
 extern "C" int cocosnet_shift9_bwd_owned() { return shift9_bwd::OWN; }
 
-// f3, g3: (B, N, C3') and v, go: (B, N, D') with C3', D' the multiples of
-// 4 at or above C3 and D (zero filled); qv, kvt: (B, N, 4) rank-1 terms
-// per position (s, mul, add, add2; kvt is kv transposed with its zero
-// row); lse, dd: (B, N); scratch p, ds: (B, Np, Np) with Np the multiple
-// of the tile at or above N, and qpart, kpart: (B, tiles, N, 3) with tiles
-// = ceil(Np / owned). Outputs df3, dg3: (B, N, C3); dq3, dk3: (B, N, 3)
-// (ds, dmul, dadd); dv: (B, N, D). All f32, contiguous, 16-byte aligned;
-// N = H W for the image width W, B <= 65535. Five launches on `stream`,
+// f3: (B, Nq, C3'), g3: (B, Nk, C3'), go: (B, Nq, D') and v: (B, Nk, D')
+// with C3', D' the multiples of 4 at or above C3 and D (zero filled); qv:
+// (B, Nq, 4), kvt: (B, Nk, 4) rank-1 terms per position (s, mul, add,
+// add2; kvt is kv transposed with its zero row); lse, dd: (B, Nq); scratch
+// p, ds: (B, Nqp, Nkp) with Nqp, Nkp the multiples of the tile at or above
+// Nq, Nk, and qpart: (B, ceil(Nkp / owned), Nq, 3), kpart: (B, ceil(Nqp /
+// owned), Nk, 3). Outputs df3: (B, Nq, C3), dg3: (B, Nk, C3); dq3: (B, Nq,
+// 3), dk3: (B, Nk, 3) (ds, dmul, dadd); dv: (B, Nk, D). All f32,
+// contiguous, 16-byte aligned; Nq and Nk whole image rows of width W, B <=
+// 65535. Five launches on `stream`,
 // dV's tiles 32 columns wide where D <= 32, else 96; returns the first
 // cudaError_t that is not success.
 extern "C" int cocosnet_shift9_bwd(
     const void* f3, const void* g3, const void* v, const void* go,
     const void* qv, const void* kvt, const void* lse, const void* dd,
     void* df3, void* dq3, void* dg3, void* dk3, void* dv, void* p, void* ds,
-    void* qpart, void* kpart, int B, int N, int C3, int D, int W,
+    void* qpart, void* kpart, int B, int Nq, int Nk, int C3, int D, int W,
     void* stream) {
   using Fn = decltype(&shift9_bwd::backward<1>);
   const Fn run = D <= 32 ? &shift9_bwd::backward<1>
@@ -418,6 +436,6 @@ extern "C" int cocosnet_shift9_bwd(
              static_cast<float*>(dg3), static_cast<float*>(dk3),
              static_cast<float*>(dv), static_cast<float*>(p),
              static_cast<float*>(ds), static_cast<float*>(qpart),
-             static_cast<float*>(kpart), B, N, C3, D, W,
+             static_cast<float*>(kpart), B, Nq, Nk, C3, D, W,
              static_cast<cudaStream_t>(stream));
 }

@@ -15,9 +15,9 @@
 //   logit = (raw - qmul kmul + qadd + kadd + cadd) qs ks (centering and norm
 //          as rank-1 terms, 1/tau folded into qs).
 //
-// Bound on the H100: operations. 2 B N^2 (3C + D) flops (185.6 GFLOP at the
-// flagship B = 6, N = 4096, 3C = 768, D = 154) against O(B N (3C + D))
-// bytes. tau = 0.01 amplifies logit error 100x, so no product runs in one
+// Bound on the H100: operations. 2 B Nq Nk (3C + D) flops (185.6 GFLOP at
+// the flagship B = 6, Nq = Nk = 4096, 3C = 768, D = 154) against
+// O(B (Nq + Nk) (3C + D)) bytes. tau = 0.01 amplifies logit error 100x, so no product runs in one
 // TF32 or bf16 pass; the cheapest split that holds the tolerance is bf16x3
 // (three passes at 989 TFLOP/s: 0.563 ms). This kernel issues 3xTF32 (three
 // passes at 495 TFLOP/s: 1.125 ms; see tc_split.cuh).
@@ -35,10 +35,11 @@
 //      of every owned position lie at any image width W: positions are
 //      flattened row-major, a neighbour past the end of an image row is
 //      exactly the one the column mask zeroes, and positions outside [0,
-//      N) load as zeros and are never owned. The logits are formed in
-//      registers with the f32 operations of `_logits` in its order,
-//      unfused, as the backward's scores epilogue forms them: the backward
-//      recomputes P from this kernel's lse and the same logits;
+//      Nq) (queries) or [0, Nk) (keys) load as zeros and are never owned.
+//      The logits are formed in registers with the f32 operations of
+//      `_logits` in its order, unfused, as the backward's scores epilogue
+//      forms them: the backward recomputes P from this kernel's lse and the
+//      same logits;
 //   the row max and sum in registers, and o += P V on the tensor cores in
 //      3xTF32, P straight from the registers of S3 and v split once per
 //      block into hi/lo planes (both as in corr_fwd.cu).
@@ -52,7 +53,13 @@
 // and its row max and sum; a second launch combines the parts in order and
 // writes o and lse. No atomics: two launches give the same bits. F3, G3
 // and v arrive with 3C and D rounded up to a multiple of 4 (16-byte rows,
-// zero filled); the wrapper makes the copy where needed.
+// zero filled); the wrapper makes the copy where needed. The query and the
+// key counts may differ (Nq rows of F3, Nk of G3 and v, both whole image
+// rows): the spatial-parallel correlation (ops/corr_sp.py) runs one query
+// shard against every key, as pallas_shift9._fwd takes nq != nk. Each side's
+// flags, halo and bounds read its own count; a shard's edge rows need
+// nothing beyond F3, whose row stack already holds their dy neighbours, and
+// their dx neighbours past the shard are the ones the column mask zeroes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,20 +108,21 @@ __device__ __forceinline__ int flags(int pos, int N, int W) {
          (col != 0 ? MINUS : 0);
 }
 
-// Grid (ceil(N / QOWN), B, parts x nd). Block (x, b, z) owns queries [QOWN
-// x, QOWN x + QOWN), the key regions [per p, per p + per) of the ceil(N /
-// KOWN) that cover N (p = z / nd) and the value columns (z % nd) DCH ..
-// f3, g3: (B, N, C3p), v: (B, N, Dp) with C3p, Dp multiples of 4, zero
-// filled past 3C and D; qv: (B, N, 4); kv: (B, 4, N). opart: (parts, B, N,
-// D), each part's o before the division by its row sum; ml: (parts, B, N,
-// 2), its row max and sum, written by the blocks of the first D chunk.
+// Grid (ceil(Nq / QOWN), B, parts x nd). Block (x, b, z) owns queries
+// [QOWN x, QOWN x + QOWN), the key regions [per p, per p + per) of the
+// ceil(Nk / KOWN) that cover Nk (p = z / nd) and the value columns (z % nd)
+// DCH .. f3: (B, Nq, C3p), g3: (B, Nk, C3p), v: (B, Nk, Dp) with C3p, Dp
+// multiples of 4, zero filled past 3C and D; qv: (B, Nq, 4); kv: (B, 4,
+// Nk). opart: (parts, B, Nq, D), each part's o before the division by its
+// row sum; ml: (parts, B, Nq, 2), its row max and sum, written by the
+// blocks of the first D chunk.
 template <int NFD>
 __global__ void __launch_bounds__(NTF, 1) shift9_fwd_kernel(
     const float* __restrict__ f3, const float* __restrict__ g3,
     const float* __restrict__ v, const float* __restrict__ qv,
     const float* __restrict__ kv, float* __restrict__ opart,
-    float* __restrict__ ml, int B, int N, int C3p, int Dp, int D, int W,
-    int nd, int per) {
+    float* __restrict__ ml, int B, int Nq, int Nk, int C3p, int Dp, int D,
+    int W, int nd, int per) {
   using L = Layout<NFD>;
   constexpr int G = NFD < 4 ? NFD : 4;  // value column blocks at once
   static_assert(NFD % G == 0, "whole groups of value columns");
@@ -132,23 +140,23 @@ __global__ void __launch_bounds__(NTF, 1) shift9_fwd_kernel(
   const int dc0 = (blockIdx.z % nd) * L::DCH;
   const int ia = blockIdx.x * QOWN - 1;  // position of region row 0
   const int kt0 = kpart * per;
-  const int kt1 = min((N + KOWN - 1) / KOWN, kt0 + per);
-  f3 += (size_t)b * N * C3p;
-  g3 += (size_t)b * N * C3p;
-  v += (size_t)b * N * Dp;
-  qv += (size_t)b * N * 4;
-  kv += (size_t)b * 4 * N;
-  const size_t orow = ((size_t)kpart * B + b) * N;  // this part's (b, 0)
+  const int kt1 = min((Nk + KOWN - 1) / KOWN, kt0 + per);
+  f3 += (size_t)b * Nq * C3p;
+  g3 += (size_t)b * Nk * C3p;
+  v += (size_t)b * Nk * Dp;
+  qv += (size_t)b * Nq * 4;
+  kv += (size_t)b * 4 * Nk;
+  const size_t orow = ((size_t)kpart * B + b) * Nq;  // this part's (b, 0)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
   const int nst = (C3p + BK - 1) / BK, steps = nst + 1;
   const int total = kt1 > kt0 ? (kt1 - kt0) * steps : 0;
 
-  // the region rows' terms; the halo rows and rows past N are not owned
+  // the region rows' terms; the halo rows and rows past Nq are not owned
   // (no VALID flag): their terms are zero and they are never written
   if (tid < QR) {
     const int pos = ia + tid;
-    int f = flags(pos, N, W);
+    int f = flags(pos, Nq, W);
     if (tid == 0 || tid == QR - 1) f &= ~VALID;
     const bool ok = f & VALID;
 #pragma unroll
@@ -163,12 +171,13 @@ __global__ void __launch_bounds__(NTF, 1) shift9_fwd_kernel(
     const int ja = kt * KOWN - 1;  // position of region column 0
     float* st = ring + (it % STAGES) * L::STAGE;
     if (s < nst) {
-      load_kmajor<KR, NTF>(st, g3, C3p, ja, N, s * BK, C3p);
-      load_kmajor<QR, NTF>(st + L::K_FLOATS, f3, C3p, ia, N, s * BK, C3p);
+      load_kmajor<KR, NTF>(st, g3, C3p, ja, Nk, s * BK, C3p);
+      load_kmajor<QR, NTF>(st + L::K_FLOATS, f3, C3p, ia, Nq, s * BK, C3p);
     } else {
 #pragma unroll
       for (int kb = 0; kb < KR; kb += BK)
-        load_kmn<L::DCH, NTF>(st + kb * L::LDV, v, Dp, ja + kb, N, dc0, Dp);
+        load_kmn<L::DCH, NTF>(st + kb * L::LDV, v, Dp, ja + kb, Nk, dc0,
+                              Dp);
     }
   };
 #pragma unroll
@@ -220,12 +229,12 @@ __global__ void __launch_bounds__(NTF, 1) shift9_fwd_kernel(
     }
     if (s == 0 && tid < KR) {  // the key region's terms and flags
       const int pos = kt * KOWN - 1 + tid;
-      int f = flags(pos, N, W);
+      int f = flags(pos, Nk, W);
       if (tid == 0 || tid == KR - 1) f &= ~VALID;
       const bool ok = f & VALID;
       ck[tid] = ok ? kv[pos] : 0.f;
-      ck[KR + tid] = ok ? kv[N + pos] : 0.f;
-      ck[2 * KR + tid] = ok ? kv[2 * N + pos] : 0.f;
+      ck[KR + tid] = ok ? kv[Nk + pos] : 0.f;
+      ck[2 * KR + tid] = ok ? kv[2 * Nk + pos] : 0.f;
       cf[tid] = f;
     }
     __syncthreads();  // the planes are in
@@ -300,7 +309,7 @@ __global__ void __launch_bounds__(NTF, 1) shift9_fwd_kernel(
             for (int e = 0; e < 2; ++e) {
               const int col = 8 * ni + 2 * t + e;
               const int cfl = cf[col];
-              // keys not owned or past N take no probability; rows not
+              // keys not owned or past Nk take no probability; rows not
               // owned take a finite logit and are never written
               float lg = cfl & VALID ? 0.f : -INFINITY;
               if ((rfl & cfl) & VALID) {
@@ -324,7 +333,7 @@ __global__ void __launch_bounds__(NTF, 1) shift9_fwd_kernel(
             }
           tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
           tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-          // finite: every key region owns a key below N
+          // finite: every key region owns a key below Nk
           const float mnew = fmaxf(m[h], tmax);
           const float alpha = expf(m[h] - mnew);
           float sum = 0.f;
@@ -413,7 +422,7 @@ __global__ void __launch_bounds__(NTF, 1) shift9_fwd_kernel(
   }
 }
 
-// Launch 2. One thread per (b, n, d) of the rows = B N rows: the parts'
+// Launch 2. One thread per (b, n, d) of the rows = B Nq rows: the parts'
 // row maxima and sums, and o, combined in the parts' order; lse from the
 // threads of d = 0.
 __global__ void shift9_fwd_combine_kernel(const float* __restrict__ opart,
@@ -441,20 +450,21 @@ __global__ void shift9_fwd_combine_kernel(const float* __restrict__ opart,
 template <int NFD>
 int run(const float* f3, const float* g3, const float* v, const float* qv,
         const float* kv, float* o, float* lse, float* opart, float* ml,
-        int B, int N, int C3, int D, int W, int parts, cudaStream_t s) {
+        int B, int Nq, int Nk, int C3, int D, int W, int parts,
+        cudaStream_t s) {
   using L = Layout<NFD>;
   const auto kernel = shift9_fwd_kernel<NFD>;
   int e = set_smem(kernel, L::BYTES);
   if (e) return e;
   const int nd = (D + L::DCH - 1) / L::DCH;
-  const int per = ((N + KOWN - 1) / KOWN + parts - 1) / parts;
-  kernel<<<dim3((N + QOWN - 1) / QOWN, B, parts * nd), NTF, L::BYTES, s>>>(
-      f3, g3, v, qv, kv, opart, ml, B, N, round_up(C3, 4), round_up(D, 4),
-      D, W, nd, per);
+  const int per = ((Nk + KOWN - 1) / KOWN + parts - 1) / parts;
+  kernel<<<dim3((Nq + QOWN - 1) / QOWN, B, parts * nd), NTF, L::BYTES, s>>>(
+      f3, g3, v, qv, kv, opart, ml, B, Nq, Nk, round_up(C3, 4),
+      round_up(D, 4), D, W, nd, per);
   if ((e = static_cast<int>(cudaGetLastError()))) return e;
-  const size_t n = (size_t)B * N * D;
+  const size_t n = (size_t)B * Nq * D;
   shift9_fwd_combine_kernel<<<(unsigned)((n + NTF - 1) / NTF), NTF, 0, s>>>(
-      opart, ml, o, lse, (size_t)B * N, D, parts);
+      opart, ml, o, lse, (size_t)B * Nq, D, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -462,29 +472,30 @@ int run(const float* f3, const float* g3, const float* v, const float* qv,
 
 extern "C" int cocosnet_shift9_max_d() { return 256; }
 
-// The blocks one part of the key range launches at (B, N, D), and the key
-// regions that cover N: the wrapper cuts the regions into the parts that
+// The blocks one part of the key range launches at (B, Nq, D), and the key
+// regions that cover Nk: the wrapper cuts the regions into the parts that
 // fill whole waves.
-extern "C" int cocosnet_shift9_fwd_blocks(int B, int N, int D) {
+extern "C" int cocosnet_shift9_fwd_blocks(int B, int Nq, int D) {
   const int dch = 8 * shift9_fwd::nfd_of(D);
-  return (N + shift9_fwd::QOWN - 1) / shift9_fwd::QOWN * B *
+  return (Nq + shift9_fwd::QOWN - 1) / shift9_fwd::QOWN * B *
          ((D + dch - 1) / dch);
 }
-extern "C" int cocosnet_shift9_fwd_key_regions(int N) {
-  return (N + shift9_fwd::KOWN - 1) / shift9_fwd::KOWN;
+extern "C" int cocosnet_shift9_fwd_key_regions(int Nk) {
+  return (Nk + shift9_fwd::KOWN - 1) / shift9_fwd::KOWN;
 }
 
-// f3, g3: (B, N, C3') and v: (B, N, D') with C3', D' the multiples of 4 at
-// or above C3 and D (zero filled); qv: (B, N, 4), kv: (B, 4, N); o: (B, N,
-// D), lse: (B, N); scratch opart: (parts, B, N, D) and ml: (parts, B, N,
-// 2). All f32, contiguous and 16-byte aligned; N = H W for the image width
-// W, D <= 256, B <= 65535, 1 <= parts <= the key regions. Two launches on
-// `stream`; returns the first cudaError_t that is not success.
+// f3: (B, Nq, C3'), g3: (B, Nk, C3') and v: (B, Nk, D') with C3', D' the
+// multiples of 4 at or above C3 and D (zero filled); qv: (B, Nq, 4), kv:
+// (B, 4, Nk); o: (B, Nq, D), lse: (B, Nq); scratch opart: (parts, B, Nq,
+// D) and ml: (parts, B, Nq, 2). All f32, contiguous and 16-byte aligned;
+// Nq and Nk whole image rows of width W, D <= 256, B <= 65535, 1 <= parts
+// <= the key regions of Nk. Two launches on `stream`; returns the first
+// cudaError_t that is not success.
 extern "C" int cocosnet_shift9_fwd(const void* f3, const void* g3,
                                    const void* v, const void* qv,
                                    const void* kv, void* o, void* lse,
-                                   void* opart, void* ml, int B, int N,
-                                   int C3, int D, int W, int parts,
+                                   void* opart, void* ml, int B, int Nq,
+                                   int Nk, int C3, int D, int W, int parts,
                                    void* stream) {
   using Fn = decltype(&shift9_fwd::run<1>);
   const int nfd = shift9_fwd::nfd_of(D);
@@ -492,12 +503,12 @@ extern "C" int cocosnet_shift9_fwd(const void* f3, const void* g3,
                  : nfd == 4 ? &shift9_fwd::run<4>
                             : &shift9_fwd::run<20>;
   if (D > cocosnet_shift9_max_d() || parts < 1 ||
-      parts > cocosnet_shift9_fwd_key_regions(N))
+      parts > cocosnet_shift9_fwd_key_regions(Nk))
     return static_cast<int>(cudaErrorInvalidValue);
   return run(static_cast<const float*>(f3), static_cast<const float*>(g3),
              static_cast<const float*>(v), static_cast<const float*>(qv),
              static_cast<const float*>(kv), static_cast<float*>(o),
              static_cast<float*>(lse), static_cast<float*>(opart),
-             static_cast<float*>(ml), B, N, C3, D, W, parts,
+             static_cast<float*>(ml), B, Nq, Nk, C3, D, W, parts,
              static_cast<cudaStream_t>(stream));
 }

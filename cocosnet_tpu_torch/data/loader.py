@@ -1,6 +1,6 @@
 """Batch loader: threaded prefetch in place of torch's DataLoader worker
 pool (reference data/__init__.py:41-54); the port's copy of
-cocosnet_tpu/data/loader.py for one process.
+cocosnet_tpu/data/loader.py.
 
 A thread pool decodes and augments the items of two batches at a time (PIL
 releases the GIL for the heavy parts) and collates their HWC numpy arrays
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from cocosnet_tpu_torch.config import Options
+from cocosnet_tpu_torch.mesh import process_shard
 
 
 def collate(items: List[Dict]) -> Dict[str, np.ndarray]:
@@ -40,9 +41,19 @@ class DataLoader:
     """Iterates epoch batches: shuffle (unless serial_batches), drop_last in
     training (data/__init__.py:47-53). The shuffle is seeded by opt.seed
     only, so a run's batch order is the JAX package's, and so are its
-    items (the JAX package's on one thread)."""
+    items (the JAX package's on one thread).
 
-    def __init__(self, dataset, opt: Options):
+    Across data ranks (process_count > 1: the mesh's data axis), every rank
+    builds the same global batch order and loads its contiguous
+    `process_shard` of each global batch, so batchSize stays the global
+    batch; in evaluation the ragged last batch is padded with wrap-around
+    duplicates so that it splits across the ranks (cocosnet_tpu/data/
+    loader.py:45-99). Each rank's dataset draws for its own items only,
+    from its own generator seeded with opt.seed, in index order: the JAX
+    package's loader on the same process index and count draws the same."""
+
+    def __init__(self, dataset, opt: Options, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset = dataset
         self.opt = opt
         self.batch_size = opt.batchSize
@@ -50,6 +61,10 @@ class DataLoader:
         self.drop_last = opt.isTrain
         self.rng = random.Random(opt.seed)
         self.workers = max(1, min(opt.nThreads, 8))
+        self.process_index = process_index
+        self.process_count = process_count
+        self._shard = process_shard(self.batch_size, process_index,
+                                    process_count)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -65,6 +80,22 @@ class DataLoader:
             indices = indices[: len(self) * self.batch_size]
         batches = [indices[i: i + self.batch_size]
                    for i in range(0, len(indices), self.batch_size)]
+        if self.process_count > 1:
+            start, size = self._shard
+            ragged = [b for b in batches if len(b) != self.batch_size]
+            if ragged and not self.drop_last:
+                # pad the eval tail batch (wrap-around duplicates) so every
+                # sample is covered; duplicates re-save the same output path
+                tail = ragged[0]
+                pad = self.batch_size - len(tail)
+                print(f"DataLoader: padding final eval batch with {pad} "
+                      f"duplicate item(s) to split across "
+                      f"{self.process_count} processes")
+                tail.extend(indices[:pad] if len(indices) >= pad
+                            else tail * pad)
+                tail[:] = tail[: self.batch_size]
+            batches = [b[start: start + size] for b in batches
+                       if len(b) == self.batch_size]
 
         if self.workers <= 1:
             for batch_idx in batches:
@@ -126,12 +157,14 @@ def dataset_registry():
             "deepfashion": DeepFashionDataset, "flickr": FlickrDataset}
 
 
-def create_dataloader(opt: Options) -> DataLoader:
-    """Registry dispatch (data/__init__.py:41-54)."""
+def create_dataloader(opt: Options, process_index: int = 0,
+                      process_count: int = 1) -> DataLoader:
+    """Registry dispatch (data/__init__.py:41-54); process_index and
+    process_count: this process's data rank and the data axis's size."""
     registry = dataset_registry()
     if opt.dataset_mode not in registry:
         raise ValueError(
             f"dataset_mode {opt.dataset_mode!r} not in {sorted(registry)}")
     dataset = registry[opt.dataset_mode](opt)
     print(f"dataset [{type(dataset).__name__}] of size {len(dataset)} was created")
-    return DataLoader(dataset, opt)
+    return DataLoader(dataset, opt, process_index, process_count)

@@ -29,12 +29,19 @@ The warp, by match_kernel, as the JAX package routes it
   attend_corr's kernels forward and backward; `opt.use_pallas` False
   takes the library route in inference and training, whatever the
   environment says.
+With opt.mesh_model > 1 the correlation's query rows are shared out over
+the mesh's model group (ops/corr_sp.attend_sp; correspondence.py:247-256,
+:265-286): at match_kernel 3 always (its kernels at nq != nk, or the
+streaming unfold without use_pallas), at match_kernel 1 with PONO_C (the
+unfold at k = 1); match_kernel 1 without PONO_C warns and runs the dense
+path replicated on every rank, as the JAX package does (:287-301).
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import warnings
 from typing import Dict, Optional
 
 import torch
@@ -45,6 +52,7 @@ from cocosnet_tpu_torch.models.generator import AdaptiveFeatureGenerator
 from cocosnet_tpu_torch.nn.blocks import ResidualBlock
 from cocosnet_tpu_torch.nn.layers import Conv2d, OneHotLabels
 from cocosnet_tpu_torch.ops.corr import attend_corr
+from cocosnet_tpu_torch.ops.corr_sp import attend_sp
 from cocosnet_tpu_torch.ops.corr_shift import attend_unfold
 from cocosnet_tpu_torch.ops.correlation import attend
 from cocosnet_tpu_torch.ops.image import (avg_pool, patches_to_space,
@@ -156,7 +164,28 @@ class CorrespondenceNet(tnn.Module):
         # exemplar's; the column (cycle) warp from the exemplar's back,
         # the same kernels with query and key swapped (correspondence.py:
         # 262-266, :321-325)
-        if opt.match_kernel == 1:
+        sp = opt.mesh_model > 1
+        if sp and (opt.match_kernel > 1 or opt.PONO_C):
+            def attend_rows(q, k, x):
+                return attend_sp(q, k, x, temperature,
+                                 match_kernel=opt.match_kernel,
+                                 pono_c=opt.PONO_C,
+                                 use_pallas=opt.use_pallas,
+                                 model=opt.mesh_model)
+
+            def row_attend(x):
+                return attend_rows(y_theta, y_phi, x)
+
+            def col_attend(x):
+                return attend_rows(y_phi, y_theta, x)
+        elif opt.match_kernel == 1:
+            if sp:
+                warnings.warn(
+                    "--mesh_model > 1 with match_kernel=1 requires --PONO_C "
+                    "for the spatial-parallel correlation; falling back to "
+                    "the dense-descriptor path REPLICATED over the model "
+                    "axis. Results are correct but unsharded — add --PONO_C "
+                    "(the flagship config) to shard this op.", stacklevel=2)
             theta = self._descriptor(y_theta)
             phi = self._descriptor(y_phi)
             kernels = opt.use_pallas and not (

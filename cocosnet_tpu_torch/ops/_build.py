@@ -35,13 +35,13 @@ _F = ctypes.c_float
 # C signature of every exported launcher: name -> argtypes (all return int)
 SIGNATURES = {
     "shift9_fwd": {
-        "cocosnet_shift9_fwd": [_P] * 9 + [_I] * 6 + [_P],
+        "cocosnet_shift9_fwd": [_P] * 9 + [_I] * 7 + [_P],
         "cocosnet_shift9_max_d": [],
         "cocosnet_shift9_fwd_blocks": [_I] * 3,
         "cocosnet_shift9_fwd_key_regions": [_I],
     },
     "shift9_bwd": {
-        "cocosnet_shift9_bwd": [_P] * 17 + [_I] * 5 + [_P],
+        "cocosnet_shift9_bwd": [_P] * 17 + [_I] * 6 + [_P],
         "cocosnet_shift9_bwd_tile": [],
         "cocosnet_shift9_bwd_owned": [],
     },
@@ -120,16 +120,20 @@ def build_all(names: Iterable[str] = SOURCES) -> None:
         out = _target(name)
         if os.path.exists(out):
             continue
-        procs.append((name, out, subprocess.Popen(
-            _compile_cmd(name, out + ".tmp"), stdout=subprocess.PIPE,
+        # a name of this process's own, then an atomic rename: processes
+        # that build the same library at once (the workers of one run) do
+        # not write one file
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs.append((name, out, tmp, subprocess.Popen(
+            _compile_cmd(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     errors = []
-    for name, out, proc in procs:
+    for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
-        os.replace(out + ".tmp", out)
+        os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
 

@@ -71,12 +71,15 @@ def _unfold_stats(f: torch.Tensor, k: int):
 
 def attend_unfold(f: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                   tau: float, match_kernel: int = 3, pono_c: bool = True,
-                  row_chunk: int = 8) -> torch.Tensor:
+                  row_chunk: int = 8, rows=None) -> torch.Tensor:
     """softmax_m(corr(n, m) / tau) @ v over centered, L2-normalized
     match_kernel-unfold descriptors of f (queries) and g (keys).
 
     f, g: (B, H, W, C) raw theta/phi features; v: (B, H*W, D). Returns
     (B, H*W, D) f32. Query rows stream in chunks of `row_chunk` image rows.
+    With `rows` = (r0, r1), only image rows [r0, r1) of the queries, the
+    spatial-parallel shard (ops/corr_sp.attend_unfold_sp): (B, (r1 - r0)
+    W, D), the same rows of the whole result.
     """
     k = match_kernel
     b, h, w, c = f.shape
@@ -120,12 +123,13 @@ def attend_unfold(f: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
             adj = raw - qc[..., None] - cb[:, None, :] + const[:, None, None]
             return adj / (qn[..., None] * k_norm[:, None, :])
 
+    r0, r1 = (0, h) if rows is None else rows
     r = row_chunk
-    while h % r != 0:
+    while (r1 - r0) % r != 0:
         r -= 1
     outs = []
-    for i in range(h // r):
-        f_blk = fp[:, i * r: i * r + r + 2 * p].reshape(b, -1, c)
+    for i0 in range(r0, r1, r):
+        f_blk = fp[:, i0: i0 + r + 2 * p].reshape(b, -1, c)
         s = torch.matmul(f_blk, g_flat.transpose(1, 2))
         s5 = s.reshape(b, r + 2 * p, wp, hp, wp)
         raw = 0.0
@@ -133,8 +137,8 @@ def attend_unfold(f: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
             for dx in range(k):
                 raw = raw + s5[:, dy:dy + r, dx:dx + w, dy:dy + h, dx:dx + w]
         raw = raw.reshape(b, r * w, n)
-        qc = q_c1.reshape(b, h, w)[:, i * r:(i + 1) * r].reshape(b, r * w)
-        qn = q_norm.reshape(b, h, w)[:, i * r:(i + 1) * r].reshape(b, r * w)
+        qc = q_c1.reshape(b, h, w)[:, i0:i0 + r].reshape(b, r * w)
+        qn = q_norm.reshape(b, h, w)[:, i0:i0 + r].reshape(b, r * w)
         prob = torch.softmax(correct(raw, qc, qn) / tau, dim=-1)
         outs.append(torch.matmul(prob, v))
     return torch.cat(outs, dim=1)

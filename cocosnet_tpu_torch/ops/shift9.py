@@ -15,6 +15,12 @@ three GEMMs, all on the tensor cores in 3xTF32), or `shift9_bwd_plain` on
 the CPU. The
 gradients of the raw features flow on through `shift9_inputs` by ordinary
 autograd, as the JAX package's prep is XLA autodiff.
+
+The core takes a query count Nq and a key count Nk that may differ (f3 and
+qv Nq rows, g3, v and kv Nk), each whole image rows: the spatial-parallel
+correlation (ops/corr_sp.py) runs one query shard against every key, as
+pallas_shift9._fwd and _bwd take nq != nk. The column masks are each
+side's own, and a shard's edge rows need nothing beyond its own f3 rows.
 """
 
 from __future__ import annotations
@@ -78,31 +84,36 @@ def shift9_inputs(f: torch.Tensor, g: torch.Tensor, tau: float,
     return f3.contiguous(), g3.contiguous(), qv.contiguous(), kv.contiguous()
 
 
-def _col_masks(n: int, w: int, device, dtype):
-    """(n,) 0/1 masks of the dx = +1 and dx = -1 shifts: +1 is invalid at
-    image column W-1, -1 at column 0 (the unfold's zero padding)."""
-    col = torch.arange(n, device=device) % w
-    return (col != w - 1).to(dtype), (col != 0).to(dtype)
+def _col_masks(nq: int, nk: int, w: int, device, dtype):
+    """(nq, 1) and (1, nk) 0/1 masks of the dx = +1 and dx = -1 shifts,
+    each side on its own count (pallas_shift9._col_masks): +1 is invalid
+    at image column W-1, -1 at column 0 (the unfold's zero padding).
+    Returns the (query, key) products for +1 and for -1."""
+    qcol = torch.arange(nq, device=device) % w
+    kcol = torch.arange(nk, device=device) % w
+    plus = ((qcol != w - 1).to(dtype)[:, None]
+            * (kcol != w - 1).to(dtype)[None, :])
+    minus = (qcol != 0).to(dtype)[:, None] * (kcol != 0).to(dtype)[None, :]
+    return plus, minus
 
 
 def _shift_sum(s3: torch.Tensor, w: int) -> torch.Tensor:
-    """raw(i, j) = S3 + m+ S3(i+1, j+1) + m- S3(i-1, j-1) on (B, N, N)."""
-    fp, fm = _col_masks(s3.shape[1], w, s3.device, s3.dtype)
+    """raw(i, j) = S3 + m+ S3(i+1, j+1) + m- S3(i-1, j-1) on (B, Nq, Nk)."""
+    mp, mm = _col_masks(s3.shape[1], s3.shape[2], w, s3.device, s3.dtype)
     plus = torch.zeros_like(s3)
     plus[:, :-1, :-1] = s3[:, 1:, 1:]
     minus = torch.zeros_like(s3)
     minus[:, 1:, 1:] = s3[:, :-1, :-1]
-    return (s3 + fp[:, None] * fp[None, :] * plus
-            + fm[:, None] * fm[None, :] * minus)
+    return s3 + mp * plus + mm * minus
 
 
 def _unshift_sum(da: torch.Tensor, w: int) -> torch.Tensor:
     """Adjoint of _shift_sum: dS3 = dA + (m+ dA)(i-1, j-1) + (m- dA)(i+1,
-    j+1) (pallas_shift9.py:122-129)."""
-    fp, fm = _col_masks(da.shape[1], w, da.device, da.dtype)
+    j+1) (pallas_shift9.py:122-129), on (B, Nq, Nk)."""
+    mp, mm = _col_masks(da.shape[1], da.shape[2], w, da.device, da.dtype)
     back = da.clone()
-    back[:, 1:, 1:] += (fp[:, None] * fp[None, :] * da)[:, :-1, :-1]
-    back[:, :-1, :-1] += (fm[:, None] * fm[None, :] * da)[:, 1:, 1:]
+    back[:, 1:, 1:] += (mp * da)[:, :-1, :-1]
+    back[:, :-1, :-1] += (mm * da)[:, 1:, 1:]
     return back
 
 
@@ -113,8 +124,8 @@ def _logits(raw, qv, kv):
 
 
 def shift9_core_plain(f3, g3, v, qv, kv, w: int):
-    """Plain PyTorch version of the forward kernel: (o (B, N, D),
-    lse (B, N))."""
+    """Plain PyTorch version of the forward kernel: (o (B, Nq, D),
+    lse (B, Nq))."""
     logits = _logits(_shift_sum(torch.matmul(f3, g3.transpose(1, 2)), w),
                      qv, kv)
     lse = torch.logsumexp(logits, dim=-1)
@@ -124,10 +135,10 @@ def shift9_core_plain(f3, g3, v, qv, kv, w: int):
 
 def shift9_bwd_plain(f3, g3, v, qv, kv, lse, go, dd, w: int):
     """Plain PyTorch version of the backward kernel, the math of
-    pallas_shift9.py `_dq_kernel` and `_dk_kernel` on whole (B, N, N)
-    matrices: from the saved lse, the output gradient go (B, N, D) and
-    dd = rowsum(go * o) (B, N), returns dF3 (B, N, 3C), dqv (B, N, 4),
-    dG3 (B, N, 3C), dkv (B, 4, N) and dV (B, N, D)."""
+    pallas_shift9.py `_dq_kernel` and `_dk_kernel` on whole (B, Nq, Nk)
+    matrices: from the saved lse, the output gradient go (B, Nq, D) and
+    dd = rowsum(go * o) (B, Nq), returns dF3 (B, Nq, 3C), dqv (B, Nq, 4),
+    dG3 (B, Nk, 3C), dkv (B, 4, Nk) and dV (B, Nk, D)."""
     logits = _logits(_shift_sum(torch.matmul(f3, g3.transpose(1, 2)), w),
                      qv, kv)
     p = torch.exp(logits - lse[..., None])
@@ -174,42 +185,62 @@ def fwd_parts(blocks: int, regions: int, sms: int) -> int:
     return best
 
 
-def shift9_fwd_parts(b: int, n: int, d: int, device) -> int:
-    """fwd_parts at (B, N, D) on the card of `device`."""
+def shift9_fwd_parts(b: int, n: int, d: int, device, nk: int = None) -> int:
+    """fwd_parts at (B, n queries, D) against nk keys (n when None) on the
+    card of `device`."""
     lib = _build.library("shift9_fwd")
     return fwd_parts(lib.cocosnet_shift9_fwd_blocks(b, n, d),
-                     lib.cocosnet_shift9_fwd_key_regions(n),
+                     lib.cocosnet_shift9_fwd_key_regions(n if nk is None
+                                                         else nk),
                      torch.cuda.get_device_properties(
                          device).multi_processor_count)
+
+
+def _check_rows(what, f3, g3, v, qv, kv, w: int) -> None:
+    """Raises unless the query side (f3, qv) and the key side (g3, v, kv)
+    are whole image rows of width w, of one batch and one 3C."""
+    b, nq, c3 = f3.shape
+    nk = g3.shape[1]
+    if (nq % w or nk % w or g3.shape != (b, nk, c3) or v.shape[:2] != (b, nk)
+            or qv.shape != (b, nq, 4) or kv.shape != (b, 4, nk)):
+        raise ValueError(
+            f"{what} takes whole image rows of width W={w} on each side: "
+            f"f3 (B, Nq, 3C), g3 (B, Nk, 3C), v (B, Nk, D), qv (B, Nq, 4), "
+            f"kv (B, 4, Nk); got f3 {tuple(f3.shape)}, g3 {tuple(g3.shape)},"
+            f" v {tuple(v.shape)}, qv {tuple(qv.shape)}, kv "
+            f"{tuple(kv.shape)}")
 
 
 def shift9_core_kernel(f3, g3, v, qv, kv, w: int):
     """Launches csrc/shift9_fwd.cu (a flash forward on the tensor cores in
     3xTF32, its key regions cut into the parts that fill whole waves, then
     a combine of the parts) on rows padded to 16 bytes, with the parts'
-    scratch: (o (B, N, D), lse (B, N))."""
+    scratch: (o (B, Nq, D), lse (B, Nq))."""
     lib = _build.library("shift9_fwd")
-    b, n, c3 = f3.shape
+    b, nq, c3 = f3.shape
+    nk = g3.shape[1]
     d = v.shape[-1]
-    if n % w or d > lib.cocosnet_shift9_max_d():
-        raise ValueError(f"shift9 kernel takes N = H * W and D <= "
-                         f"{lib.cocosnet_shift9_max_d()}; got N={n}, W={w}, "
-                         f"D={d}")
+    _check_rows("shift9 kernel", f3, g3, v, qv, kv, w)
+    if d > lib.cocosnet_shift9_max_d():
+        raise ValueError(f"shift9 kernel takes D <= "
+                         f"{lib.cocosnet_shift9_max_d()}; got D={d}")
     if b > 65535:
         raise ValueError(f"shift9 kernel takes B <= 65535 (its grid's second "
                          f"dimension); got B={b}")
     _check_f32("shift9 kernel", f3, g3, v, qv, kv)
-    parts = shift9_fwd_parts(b, n, d, f3.device)
+    parts = shift9_fwd_parts(b, nq, d, f3.device, nk)
     ops = [_rows16(t) for t in (f3, g3, v)]
-    o = torch.empty((b, n, d), dtype=torch.float32, device=f3.device)
-    lse = torch.empty((b, n), dtype=torch.float32, device=f3.device)
-    opart = torch.empty((parts, b, n, d), dtype=torch.float32,
+    o = torch.empty((b, nq, d), dtype=torch.float32, device=f3.device)
+    lse = torch.empty((b, nq), dtype=torch.float32, device=f3.device)
+    opart = torch.empty((parts, b, nq, d), dtype=torch.float32,
                         device=f3.device)
-    ml = torch.empty((parts, b, n, 2), dtype=torch.float32, device=f3.device)
+    ml = torch.empty((parts, b, nq, 2), dtype=torch.float32,
+                     device=f3.device)
     with torch.cuda.device(f3.device):
         err = lib.cocosnet_shift9_fwd(
             *(t.data_ptr() for t in (*ops, qv, kv, o, lse, opart, ml)),
-            b, n, c3, d, w, parts, torch.cuda.current_stream().cuda_stream)
+            b, nq, nk, c3, d, w, parts,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "shift9_fwd")
     return o, lse
 
@@ -217,14 +248,17 @@ def shift9_core_kernel(f3, g3, v, qv, kv, w: int):
 def shift9_bwd_kernel(f3, g3, v, qv, kv, lse, go, dd, w: int):
     """Launches csrc/shift9_bwd.cu (scores, a reduce of the side gradients,
     then dF3, dG3 and dV, on the tensor cores in 3xTF32) with its dS3 and P
-    scratch (B, Np, Np) and per-tile partials: the outputs of
+    scratch (B, Nqp, Nkp) and per-tile partials: the outputs of
     shift9_bwd_plain."""
     lib = _build.library("shift9_bwd")
-    b, n, c3 = f3.shape
-    d = v.shape[-1]
-    if n % w:
-        raise ValueError(f"shift9 backward kernel takes N = H * W; got N={n},"
-                         f" W={w}")
+    b, nq, c3 = f3.shape
+    nk, d = g3.shape[1], v.shape[-1]
+    _check_rows("shift9 backward kernel", f3, g3, v, qv, kv, w)
+    if go.shape != (b, nq, v.shape[-1]) or lse.shape != (b, nq) \
+            or dd.shape != (b, nq):
+        raise ValueError(f"shift9 backward kernel takes go (B, Nq, D), lse "
+                         f"and dd (B, Nq); got {tuple(go.shape)}, "
+                         f"{tuple(lse.shape)}, {tuple(dd.shape)}")
     if b > 65535:
         raise ValueError(f"shift9 backward kernel takes B <= 65535 (its "
                          f"grid's third dimension); got B={b}")
@@ -234,24 +268,27 @@ def shift9_bwd_kernel(f3, g3, v, qv, kv, lse, go, dd, w: int):
                     -1).contiguous()
     _check_f32("shift9 backward kernel", f3, g3, v, qv, kvt, lse, go, dd)
     tile = lib.cocosnet_shift9_bwd_tile()
-    npad = -(-n // tile) * tile
-    tiles = -(-npad // lib.cocosnet_shift9_bwd_owned())
+    owned = lib.cocosnet_shift9_bwd_owned()
+    nqp, nkp = -(-nq // tile) * tile, -(-nk // tile) * tile
     ops = [_rows16(t) for t in (f3, g3, v, go)]
     df3 = torch.empty_like(f3)
     dg3 = torch.empty_like(g3)
     dv = torch.empty_like(v)
-    dq3 = torch.empty((b, n, 3), dtype=torch.float32, device=f3.device)
-    dk3 = torch.empty_like(dq3)
-    p = torch.empty((b, npad, npad), dtype=torch.float32, device=f3.device)
+    dq3 = torch.empty((b, nq, 3), dtype=torch.float32, device=f3.device)
+    dk3 = torch.empty((b, nk, 3), dtype=torch.float32, device=f3.device)
+    p = torch.empty((b, nqp, nkp), dtype=torch.float32, device=f3.device)
     ds = torch.empty_like(p)
-    qpart = torch.empty((b, tiles, n, 3), dtype=torch.float32,
+    # the query partials, one per key tile; the key partials, one per
+    # query tile
+    qpart = torch.empty((b, -(-nkp // owned), nq, 3), dtype=torch.float32,
                         device=f3.device)
-    kpart = torch.empty_like(qpart)
+    kpart = torch.empty((b, -(-nqp // owned), nk, 3), dtype=torch.float32,
+                        device=f3.device)
     with torch.cuda.device(f3.device):
         err = lib.cocosnet_shift9_bwd(
             *(t.data_ptr() for t in (*ops, qv, kvt, lse, dd, df3, dq3, dg3,
                                      dk3, dv, p, ds, qpart, kpart)),
-            b, n, c3, d, w,
+            b, nq, nk, c3, d, w,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "shift9_bwd")
     dqv = torch.cat([dq3, dq3[..., 2:3]], -1)

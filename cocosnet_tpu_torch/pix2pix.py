@@ -17,6 +17,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from cocosnet_tpu_torch import mesh as M
 from cocosnet_tpu_torch.config import Options
 from cocosnet_tpu_torch.losses.contextual import contextual_loss
 from cocosnet_tpu_torch.losses.gan import (feature_matching_loss, gan_loss,
@@ -38,7 +39,7 @@ FM_WEIGHTS = [1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0]
 _PORTED = dict(mask_noise=False, noise_for_mask=False,
                use_coordconv=False, show_corr=False,
                adaptor_res_deeper=False, adaptor_nonlocal=False,
-               adaptor_se=False, mesh_model=1,
+               adaptor_se=False,
                D_cam=0.0, remat=False, remat_full=False,
                netD="multiscale", netD_subarch="n_layer")
 
@@ -246,7 +247,9 @@ def warp_mask_loss(opt: Options, warp_mask: torch.Tensor,
     """NLL of log(warp_mask) against the label map downsampled to the warp
     grid, zeroing classes absent from the exemplar and class 0
     (pix2pix_model.py:261-276), with the per-sample class scan as a
-    presence table."""
+    presence table. Across data ranks the weight sum is the global batch's,
+    and the rank's term is scaled by the data size, so that the mean over
+    the ranks is the global batch's term."""
     b, fh, fw, nc = warp_mask.shape
     gt = resize_nearest(input_label[..., None].float(), fh, fw)[..., 0]
     ref = resize_nearest(ref_label[..., None].float(), fh, fw)[..., 0]
@@ -256,7 +259,9 @@ def warp_mask_loss(opt: Options, warp_mask: torch.Tensor,
     w = torch.where(gt == 0, torch.zeros_like(w), w)
     logp = torch.log(warp_mask.float() + 1e-10).reshape(b, -1, nc)
     nll = -torch.gather(logp, 2, gt[..., None])[..., 0]
-    return (nll * w).sum() / (w.sum() + 1e-5) * opt.weight_mask
+    mesh = M.global_mesh()
+    return ((nll * w).sum() * mesh.data / (M.data_sum(w.sum()) + 1e-5)
+            * opt.weight_mask)
 
 
 def compute_generator_losses(nets: Pix2PixNets, data: Batch,
@@ -284,7 +289,10 @@ def compute_generator_losses(nets: Pix2PixNets, data: Batch,
             losses["G_warp_cycle"] = losses["G_warp_cycle"] + (
                 generate_out["warp_i2r2i"] - real).abs().mean() \
                 * opt.warp_cycle_w
-    sample_weights = (self_ref / (self_ref.sum() + 1e-5))[:, None, None, None]
+    # normalized over the global batch: across data ranks each rank's mean
+    # of its shard is then its share of the batch's term, times the data size
+    sample_weights = (self_ref / (M.data_sum(self_ref.sum()) + 1e-5))[
+        :, None, None, None]
     if opt.warp_self_w > 0:
         losses["G_warp_self"] = ((generate_out["warp_out"] - real_image).abs()
                                  * sample_weights).mean() * opt.warp_self_w

@@ -20,6 +20,16 @@ COCOSNET_PALLAS_MK1_TRAIN=1; once a step for the row warp and once more
 for each column (cycle) warp the configuration asks for. The step updates
 the networks' parameters, the optimizer state, the spectral u/v and the
 EMA shadows in place.
+
+Across processes (a mesh of data and model ranks, cocosnet_tpu_torch/
+mesh.py), each net's gradients are averaged over the job before its Adam
+step, as one flat bucket and one all_reduce (the JAX package's one program
+sums them over the `data` axis): the ranks of a model group hold the same
+gradients already, so the mean is over the data ranks, and every rank
+takes the same step. The reported losses are their means over the job,
+the global batch's losses. The batch-coupled loss terms read their global
+denominators in pix2pix (mesh.data_sum). No BatchNorm runs on these
+configurations, so no statistics need syncing.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from cocosnet_tpu_torch import mesh as M
 from cocosnet_tpu_torch import pix2pix as P
 from cocosnet_tpu_torch.nn import layers as L
 from cocosnet_tpu_torch.train import state as S
@@ -35,11 +46,14 @@ from cocosnet_tpu_torch.train import state as S
 
 def _apply_grads(optimizer: torch.optim.Optimizer, params: Sequence,
                  loss: torch.Tensor, lr: float) -> None:
-    """One Adam step of `params` on d(loss)/d(params); a parameter the loss
-    does not reach takes a zero gradient, as in optax."""
+    """One Adam step of `params` on d(loss)/d(params), averaged over the
+    job's ranks; a parameter the loss does not reach takes a zero gradient,
+    as in optax."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = M.mean_over_job([torch.zeros_like(p) if g is None else g
+                             for p, g in zip(params, grads)])
     for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+        p.grad = g
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
@@ -82,7 +96,7 @@ def make_train_step(nets: P.Pix2PixNets):
         finally:
             nets.set_train(False)
         state.step += 1
-        losses = {k: v.detach() for k, v in {**g_losses, **d_losses}.items()}
+        losses = _global_losses({**g_losses, **d_losses})
         visuals = {k: out[k].detach() for k in ("fake_image", "warp_out",
                                                 "warp_mask") if k in out}
         return losses, visuals
@@ -111,9 +125,16 @@ def make_d_step(nets: P.Pix2PixNets):
         finally:
             nets.set_train(False)
         state.step += 1
-        return {k: v.detach() for k, v in d_losses.items()}
+        return _global_losses(d_losses)
 
     return d_step
+
+
+def _global_losses(losses: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The losses, detached, as their means over the job's ranks."""
+    return dict(zip(losses, M.mean_over_job([v.detach()
+                                             for v in losses.values()])))
 
 
 def make_inference_step(nets: P.Pix2PixNets):

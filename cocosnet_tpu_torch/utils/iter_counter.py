@@ -34,7 +34,9 @@ class StepEvents:
 class TrainProgress:
     """Image-counter-driven epoch/iteration tracker with iter.txt resume."""
 
-    def __init__(self, opt: Options, images_per_epoch: int):
+    def __init__(self, opt: Options, images_per_epoch: int,
+                 write_record: bool = True):
+        self.write_record = write_record  # False on all ranks but one
         self.batch = opt.batchSize
         self.images_per_epoch = images_per_epoch
         self.final_epoch = opt.niter + opt.niter_decay
@@ -127,6 +129,8 @@ class TrainProgress:
             return None
 
     def _write_record(self, epoch: int, into_epoch: int) -> None:
+        if not self.write_record:
+            return
         try:
             with open(self.record_path, "w") as f:
                 f.write(f"{epoch}\n{into_epoch}\n")

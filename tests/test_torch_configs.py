@@ -351,15 +351,15 @@ def test_adaptor_kernel_4_keeps_the_names():
 
 @pytest.mark.parametrize("mode", MODES)
 def test_check_ported_takes_inference_refuses_training(mode):
-    """Each configuration's inference flags and training flags are taken;
-    what stays unported (mask noise, the CAM discriminator, a model mesh)
-    is refused in training too."""
+    """Each configuration's inference flags and training flags are taken,
+    with a model mesh too; what stays unported (mask noise, the CAM
+    discriminator) is refused in training too."""
     kw = dict(SMALL, **CONFIGS[mode])
     TP.check_ported(TCFG.test_defaults(**kw))
     train = dict(kw, isTrain=True, ndf=8, **TRAIN_FLAGS[mode])
     TP.check_ported(TCFG.test_defaults(**train))
-    for flag, value in (("mask_noise", True), ("D_cam", 1.0),
-                        ("mesh_model", 2)):
+    TP.check_ported(TCFG.test_defaults(**dict(train, mesh_model=2)))
+    for flag, value in (("mask_noise", True), ("D_cam", 1.0)):
         with pytest.raises(NotImplementedError, match=flag):
             TP.check_ported(TCFG.test_defaults(**dict(train,
                                                       **{flag: value})))

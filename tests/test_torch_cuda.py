@@ -265,6 +265,67 @@ def test_shift9_kernels_match_plain_with_roles_swapped(gen, d):
                                    atol=1e-4 * float(r.abs().max()), msg=name)
 
 
+@pytest.mark.parametrize("h,w,c,d,r0,hl,swap", [
+    # query shards against every key (nq < nk): a middle shard, the first
+    # and the last (their outer halo the unfold's zero padding), one image
+    # row, an odd width, D 22 and 154; roles swapped as the column warp
+    (16, 24, 32, 5, 5, 3, False), (16, 24, 32, 22, 0, 4, False),
+    (16, 24, 32, 3, 15, 1, True), (40, 40, 64, 48, 10, 20, False),
+    (32, 64, 256, 154, 16, 16, True)])
+def test_shift9_kernels_on_a_query_shard(gen, h, w, c, d, r0, hl, swap):
+    """The forward and backward kernels at nq = hl W queries (rows r0 ..
+    r0 + hl of the queries' map, as ops/corr_sp.py cuts them) against nk =
+    H W keys: the forward within 1e-4 of the plain version and equal to the
+    square kernel's rows there within 1e-4, the backward within 1e-4 of
+    each output's largest magnitude of the f64 plain run, the same bits on
+    two launches."""
+    f, g = _r(gen, 2, h, w, c), _r(gen, 2, h, w, c, scale=1.5) + 0.2
+    if swap:
+        f, g = g, f
+    v, go = _r(gen, 2, h * w, d), _r(gen, 2, hl * w, d)
+    f3, g3, qv, kv = S.shift9_inputs(f, g, 0.01, True)
+    rows = slice(r0 * w, (r0 + hl) * w)
+    square = S.shift9_core_kernel(f3, g3, v, qv, kv, w)[0][:, rows]
+    f3, qv = f3[:, rows].contiguous(), qv[:, rows].contiguous()
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    po, plse = S.shift9_core_plain(f3, g3, v, qv, kv, w)
+    torch.testing.assert_close(o, po, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    torch.testing.assert_close(o, square, rtol=0, atol=1e-4)
+    args = (f3, g3, v, qv, kv, lse, go, (go * o).sum(-1), w)
+    got = S.shift9_bwd_kernel(*args)
+    want = [t.float() for t in S.shift9_bwd_plain(*(
+        a.double() if torch.is_tensor(a) else a for a in args))]
+    for name, a, r in zip(("dF3", "dqv", "dG3", "dkv", "dV"), got, want):
+        assert a.shape == r.shape, name
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=name)
+    again = S.shift9_bwd_kernel(*args)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def test_shift9_kernels_on_a_wide_query_map(gen):
+    """nq > nk: a query map of 40 rows against a key map of 12 (each
+    side's terms from its own map), forward and backward against the plain
+    versions (the f64 run for the backward)."""
+    w, c, d = 32, 64, 22
+    f, g = _r(gen, 2, 40, w, c), _r(gen, 2, 12, w, c)
+    v, go = _r(gen, 2, 12 * w, d), _r(gen, 2, 40 * w, d)
+    f3, _, qv, _ = S.shift9_inputs(f, f, 0.01, True)
+    _, g3, _, kv = S.shift9_inputs(g, g, 0.01, True)
+    o, lse = S.shift9_core_kernel(f3, g3, v, qv, kv, w)
+    torch.testing.assert_close(o, S.shift9_core_plain(f3, g3, v, qv, kv,
+                                                      w)[0],
+                               rtol=0, atol=1e-4)
+    args = (f3, g3, v, qv, kv, lse, go, (go * o).sum(-1), w)
+    got = S.shift9_bwd_kernel(*args)
+    want = [t.float() for t in S.shift9_bwd_plain(*(
+        a.double() if torch.is_tensor(a) else a for a in args))]
+    for name, a, r in zip(("dF3", "dqv", "dG3", "dkv", "dV"), got, want):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), msg=name)
+
+
 @pytest.mark.parametrize("shape", [(20, 13, 8, 5), (4, 64, 16, 154)])
 def test_shift9_bwd_kernel_gives_the_same_bits(gen, shape):
     """Two launches of the backward kernel on the same inputs give the

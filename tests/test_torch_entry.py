@@ -272,9 +272,10 @@ def test_twins_refuse_what_they_do_not_run(tree):
     for extra, err, match in (
             (["--steps_per_dispatch", "2"], NotImplementedError,
              "steps_per_dispatch"),
-            (["--mesh_data", "2"], NotImplementedError, "mesh_data"),
-            (["--mesh_model", "2"], NotImplementedError, "mesh_model"),
-            (["--distributed"], NotImplementedError, "distributed"),
+            # the mesh flags are taken: a mesh the global batch does not
+            # split over, or --distributed without its address, is refused
+            (["--mesh_data", "3"], ValueError, "must be divisible"),
+            (["--distributed"], ValueError, "coordinator_address"),
             (["--platform", "tpu"], SystemExit, "tpu")):
         with pytest.raises(err, match=match):
             TTRAIN.main(flags + extra)

@@ -103,8 +103,8 @@ def runs(tmp_path_factory):
 
         create = TTRAIN.create_dataloader
 
-        def one_batch_ahead(opt):
-            loader = create(opt)
+        def one_batch_ahead(opt, *shard):
+            loader = create(opt, *shard)
             next(iter(loader))      # train.py's batch to build its nets
             return loader
 

@@ -44,12 +44,15 @@ def test_port_imports_no_jax_and_nothing_of_cocosnet_tpu(path):
         text = f.read()
     # no dynamic import of them either, and no environment switch but the
     # JAX package's kernel switches and its colour-table path
-    # (test_env_switches_are_the_jax_package's), each named by its constant
+    # (test_env_switches_are_the_jax_package's) and the job environment
+    # torchrun gives its processes (mesh.py: the counterpart of the JAX
+    # package's JAX_COORDINATOR_ADDRESS), each named by its constant
     assert not re.search(r"import_module\(\s*['\"](jax|cocosnet_tpu\b)",
                          text)
     for m in re.finditer(r"\bos\.(environ|getenv)\b(.{0,24})", text):
         assert re.search(r"\b(MK1_TRAIN|DW|FUSED_TRAIN|FUSED|FUSED_STATS|"
-                         r"ONEHOT|COLOR150)_ENV\b",
+                         r"ONEHOT|COLOR150|RANK|WORLD_SIZE|MASTER_ADDR|"
+                         r"LOCAL_RANK)_ENV\b",
                          m.group(2)), (path, m.group(0))
 
 

@@ -32,3 +32,120 @@ def condition(module, seed):
                 m.weight.fill_(0.2)
             elif isinstance(m, Attention):
                 m.gamma.fill_(0.5)
+
+
+# ----------------------------------------------------------------- jobs
+# The multi-process tests run the port in gloo workers on the CPU, spawned
+# with a file:// rendezvous under the test's tmp_path (parallel test
+# workers never share a port). The workers import only the port: the JAX
+# references are computed in the test process.
+
+def spawn_job(fn, world: int, tmp_path, *args) -> None:
+    """Runs fn(rank, world, init_method, *args) in `world` spawned
+    processes and joins them; raises if one fails."""
+    import uuid
+
+    import torch.multiprocessing as mp
+    init = "file://" + str(tmp_path / f"rendezvous_{uuid.uuid4().hex}")
+    mp.start_processes(fn, args=(world, init, *args), nprocs=world,
+                       join=True, start_method="spawn")
+
+
+def _join(rank, world, init, data, model):
+    import torch.distributed as dist
+
+    from cocosnet_tpu_torch import mesh as M
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    mesh = M.create_mesh(data, model)
+    M.set_global_mesh(mesh)
+    return mesh
+
+
+def mesh_worker(rank, world, init, data, model, out_dir):
+    """The layout and groups of a (data, model) mesh: this rank's indices
+    and the sums of the ranks over its data and its model group."""
+    import torch.distributed as dist
+
+    from cocosnet_tpu_torch import mesh as M
+    mesh = _join(rank, world, init, data, model)
+    try:
+        mine = torch.tensor([float(rank)])
+        over_data, over_model = mine.clone(), mine.clone()
+        if mesh.data_group is not None:
+            dist.all_reduce(over_data, group=mesh.data_group)
+        if mesh.model_group is not None:
+            dist.all_reduce(over_model, group=mesh.model_group)
+        torch.save(dict(data_rank=mesh.data_rank, model_rank=mesh.model_rank,
+                        over_data=float(over_data), over_model=float(over_model),
+                        gathered=M.gather_data(mine[None]).reshape(-1)),
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        M.shutdown()
+
+
+def sp_worker(rank, world, init, data, model, cases_file, out_dir):
+    """attend_sp on each case of cases_file ({name: dict(f, g, v, tau, mk,
+    use_pallas)}, the whole batch) for this rank's data shard of the batch,
+    with d/d(f, g, v) of sum(sin(out)); saves {name: (out, grads)}."""
+    from cocosnet_tpu_torch import mesh as M
+    from cocosnet_tpu_torch.ops.corr_sp import attend_sp
+    mesh = _join(rank, world, init, data, model)
+    try:
+        res = {}
+        for name, c in torch.load(cases_file).items():
+            b = c["f"].shape[0] // data
+            rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+            leaves = [c[k][rows].clone().requires_grad_() for k in "fgv"]
+            out = attend_sp(*leaves, c["tau"], match_kernel=c["mk"],
+                            pono_c=True, use_pallas=c["use_pallas"],
+                            model=model)
+            torch.sin(out).sum().backward()
+            res[name] = (out.detach(), [t.grad for t in leaves])
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        M.shutdown()
+
+
+def parallel_step(opt, batch, seed: int = 0):
+    """On this process's rank of the registered mesh: the weights drawn as
+    `condition(net, seed + i)` draws them, then with opt.isTrain one train
+    step (make_train_step at epoch 1's learning rates) on this rank's data
+    shard of the numpy batch, else one inference step. Returns the fake
+    (this shard's), the reported losses and the trained nets' parameters
+    after the step."""
+    from cocosnet_tpu_torch import mesh as M
+    from cocosnet_tpu_torch import pix2pix as P
+    from cocosnet_tpu_torch.train import state as TS
+    from cocosnet_tpu_torch.train import steps as ST
+    mesh = M.global_mesh()
+    nets = P.Pix2PixNets(opt, device="cpu", seed=seed)
+    for i, net in enumerate(nets.modules()):
+        condition(net, seed + i)
+    b = opt.batchSize // mesh.data
+    shard = {k: v[mesh.data_rank * b:(mesh.data_rank + 1) * b]
+             for k, v in batch.items()}
+    if not opt.isTrain:
+        fake = ST.make_inference_step(nets)(shard)["fake_image"]
+        return dict(fake=fake.clone())
+    state = TS.create_train_state(opt, nets)
+    losses, visuals = ST.make_train_step(nets)(
+        state, shard, TS.lrs_for_epoch(opt, 1))
+    return dict(fake=visuals["fake_image"].clone(),
+                losses={k: float(v) for k, v in losses.items()},
+                params={net: {k: p.detach().clone() for k, p in
+                              getattr(nets, net).named_parameters()}
+                        for net in ("gen", "corr", "disc")})
+
+
+def step_worker(rank, world, init, data, model, opts, batch, out_dir):
+    """parallel_step of each of `opts` on this rank of a (data, model) job;
+    saves the list of results."""
+    from cocosnet_tpu_torch import mesh as M
+    _join(rank, world, init, data, model)
+    try:
+        torch.save([parallel_step(opt, batch) for opt in opts],
+                   f"{out_dir}/rank{rank}.pt")
+    finally:
+        M.shutdown()
