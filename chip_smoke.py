@@ -53,7 +53,17 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   this machine has one): the 512 px inference and a 128 px train step
   with the correlation's query rows over two model ranks, and the train
   step over two data ranks, each against one process on the same weights
-  and batch; a one-rank NCCL group;
+  and batch (and the data ranks' step of the reference's default
+  BatchNorm norm); a one-rank NCCL group;
+- the architecture branches (phase 12): (a) the reference's default norm
+  (a synchronized BatchNorm in every SPADE block, no --PONO): the small
+  slice and two small f32 train steps against the CPU, running statistics
+  included, the batch-6 serve graph, batch-8 training; (b) the extras
+  (coordconv, the SE, nonlocal and deeper dilated adaptors, the CAM
+  discriminator, mask noise, noise_for_mask): the batch-6 forward with its
+  conv3x3.cu table, batch-8 training without remat, with --remat and with
+  --remat --remat_full, batch 16 with --remat (s/step, peak memory); (c)
+  the explicit-matrix correspondence against the CPU;
 checking on each path that every kernel of that path was launched as often
 as the routing predicts.
 
@@ -466,6 +476,23 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed, swap=False):
     print(f"     {label} forward: kernel {fwd_ms:.3f} ms "
           f"in {S.shift9_fwd_parts(b, n, d, f3.device)} key parts, "
           f"{rate:.1f} TFLOP/s of TF32", flush=True)
+    forward = None
+    if swap:
+        # the column warp's forward row: its plain version and the SDPA
+        # forward beside it
+        fwd_plain_ms = time_ms(
+            lambda: S.shift9_core_plain(f3, g3, v, qv, kv, w), runs=3)
+        fwd_lib = shift9_yardstick(f, gg, v, pono_c, o)
+        fwd_bms, fwd_by, _, _ = tc_bound(
+            _nbytes(f3, g3, v, qv, kv) + b * n * (d + 1) * 4,
+            2.0 * b * n * n * (3 * c + d))
+        print(f"     {label} forward: plain {fwd_plain_ms:.3f} ms, "
+              f"{fwd_lib['library']} {fwd_lib['library_ms']:.3f} ms, bound "
+              f"{fwd_bms:.3f} ms ({fwd_by})", flush=True)
+        forward = dict(max_abs_err=err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+                       bound_ms=fwd_bms, bound_by=fwd_by,
+                       library_ms=fwd_lib["library_ms"],
+                       library=fwd_lib["library"])
     again = S.shift9_bwd_kernel(*args)
     _check(all(torch.equal(a, r) for a, r in zip(got, again)),
            f"{label} backward: two launches give the same bits")
@@ -490,10 +517,13 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed, swap=False):
           f"issue {issued / 1e9:.1f} GFLOP per pass, "
           f"{SPLIT_PASSES * issued / ms / 1e9:.1f} TFLOP/s of TF32",
           flush=True)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=lib["library_ms"],
-                library=lib["library"], tf32x3_bound_ms=tf32_ms,
-                fma_bound_ms=fma_ms)
+    rec = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=lib["library_ms"],
+               library=lib["library"], tf32x3_bound_ms=tf32_ms,
+               fma_bound_ms=fma_ms)
+    if forward is not None:
+        rec["forward"] = forward
+    return rec
 
 
 def corr_inputs(g, b, n, m, c=256, d=154):
@@ -1040,7 +1070,7 @@ def make_batch(g, b, h, w, nc):
     }
 
 
-def reference_check(P, cfg, g, match_kernel):
+def reference_check(P, cfg, g, match_kernel, flags=None, tag=""):
     """The whole slice on the card (kernels, f32) against the same weights
     and batch through the plain versions on the CPU, at a small input
     (128 x 256, ngf 16, 13 classes: a 32 x 64 feature map) that takes the
@@ -1051,12 +1081,12 @@ def reference_check(P, cfg, g, match_kernel):
     forward's recorded convs; atol 5e-4 as the CPU parity tests hold the
     slice against the JAX package."""
     from cocosnet_tpu_torch.tools import ab_dw as AB
-    opt = cfg.test_defaults(
+    opt = cfg.test_defaults(**{**dict(
         dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,
         crop_size=256, load_size=256, aspect_ratio=2.0, batchSize=1, ngf=16,
         use_attention=True, maskmix=True, PONO=True, PONO_C=True,
         warp_mask_losstype="direct", match_kernel=match_kernel,
-        isTrain=False)
+        isTrain=False), **(flags or {})})
     batch = make_batch(g, 1, 128, 256, opt.semantic_nc)
     cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
     condition_weights(cpu.corr, g, "cpu")
@@ -1077,12 +1107,13 @@ def reference_check(P, cfg, g, match_kernel):
     predicted = _launches(**corr, **AB.predicted_launches(records))
     _check(moved == predicted and all(
         moved[k] for k in ("conv3x3_fused", "conv3x3_fused_stats", *corr)),
-        f"match_kernel {match_kernel} small input launched {moved} == "
+        f"match_kernel {match_kernel}{tag} small input launched {moved} == "
         f"{predicted}, the routing's prediction, the correlation kernel and "
         f"both dense conv kernels among them")
     for key in ("fake_image", "warp_out", "warp_mask"):
         err = _maxerr(got[key].cpu(), want[key])
-        _check(err <= 5e-4, f"match_kernel {match_kernel} small-input slice "
+        _check(err <= 5e-4, f"match_kernel {match_kernel}{tag} small-input "
+               f"slice "
                f"on the card vs plain on the CPU, {key}: max err {err:.3g} "
                f"<= 5e-4")
 
@@ -1289,6 +1320,9 @@ def cpu_train_reference(P, L, TS, ST, g, opt, batch) -> dict:
     ref["uv"] = [{k: t.clone() for k, t in m.state_dict().items()
                   if k.endswith(("weight_u", "weight_v"))}
                  for m in cpu.modules()]
+    ref["stats"] = [{k: t.clone() for k, t in m.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+                    for m in cpu.modules()]
     ref["want2"], _ = cstep(cstate, batch, ref["lr"])
     return ref
 
@@ -1410,6 +1444,19 @@ def train_reference_check(P, L, TS, ST, ref, tag, corr_launches, route):
     _check(count > 0 and worst <= 2e-5,
            f"{tag} spectral u/v after the step ({count} vectors): max err "
            f"{worst:.3g} <= 2e-5")
+    # the BatchNorms' running statistics (configuration (a)), each at rel
+    # 2e-3 of its own scale
+    worst, count = 0.0, 0
+    for stats, b in zip(ref["stats"], gpu.modules()):
+        sb = b.state_dict()
+        for k, t in stats.items():
+            scale = max(float(t.abs().max()), 1e-3)
+            worst = max(worst, _maxerr(sb[k].cpu(), t) / scale)
+            count += 1
+    if count:
+        _check(worst <= 2e-3, f"{tag} BatchNorm running statistics after "
+               f"the step ({count} vectors): max err / scale {worst:.3g} "
+               f"<= 2e-3")
 
     got, _ = gstep(gstate, batch, lr)
     _check_losses(got, ref["want2"], 2e-2, f"{tag} second small train step")
@@ -1550,7 +1597,7 @@ def forward_conv_table(P, cfg, L, C, g, opt=None, batch=None,
         xs, ks = r["x_shape"], r["kernel_shape"]
         gate = dict(stride=r["stride"],
                     padding=1 if r["reflect"] else r["padding"])
-        if r["onehot"]:
+        if r["onehot"] or r.get("dilation", 1) != 1:
             continue
         stats = bool(r["want_stats"]
                      and L.conv3x3_stats_supported(xs, ks, **gate))
@@ -1588,6 +1635,8 @@ def forward_conv_table(P, cfg, L, C, g, opt=None, batch=None,
         del got, want
         ms = time_ms(lambda: C._conv3x3_kernel(x, k, bias, refl, None,
                                                stats), runs=10)
+        plain_ms = time_ms(lambda: C.conv3x3_plain(
+            x, k, bias, reflect=refl, want_stats=stats), runs=3)
         xc = x.permute(0, 3, 1, 2)
         wc = k.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
@@ -1604,7 +1653,8 @@ def forward_conv_table(P, cfg, L, C, g, opt=None, batch=None,
         tot.update(kernel=n * ms, cudnn=n * lib_ms, bound=n * bms,
                    launches=n)
         table[label] = dict(count=n, max_abs_err=err, ms=ms,
-                            library_ms=lib_ms, bound_ms=bms,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bms,
                             bound_by=bound_by,
                             shape=(b, h, w, ci, co, refl, stats))
         print(f"     {label:>32s} {n:>5d} {ms:>8.3f} {lib_ms:>8.3f} "
@@ -1705,7 +1755,7 @@ def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps) -> dict:
 
 
 def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
-               steps) -> dict:
+               steps, profile=True, out=None) -> dict:
     """A full-width train step at batch 8 through make_train_step, weights
     at unit signal scale, on the batch draw_batch() draws after them: the
     launches of one step, against `expected` and against the routing's
@@ -1743,9 +1793,10 @@ def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
     _check(set(losses) == loss_keys and finite(losses),
            f"{len(loss_keys)} loss terms, all finite: " + ", ".join(
                f"{k} {float(v):.4g}" for k, v in sorted(losses.items())))
-    _check(tuple(vis["fake_image"].shape) == (8, 256, 256, 3)
+    b = opt.batchSize
+    _check(tuple(vis["fake_image"].shape) == (b, 256, 256, 3)
            and bool(torch.isfinite(vis["fake_image"]).all()),
-           "fake_image (8, 256, 256, 3) finite")
+           f"fake_image ({b}, 256, 256, 3) finite")
     losses, _ = step(state, batch, lr)          # second warm-up
     _check(finite(losses), "second step's losses finite")
     torch.cuda.synchronize()
@@ -1755,10 +1806,14 @@ def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t) / steps
     _check(finite(losses), f"losses finite after {steps + 2} steps")
-    print(f"{tag} batch 8: {dt:.4f} s/step, {8 / dt:.2f} images/s ({steps} "
-          f"steps after 2 warm-ups, host clock); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    profile_call(lambda: step(state, batch, lr))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag} batch {b}: {dt:.4f} s/step, {b / dt:.2f} images/s "
+          f"({steps} steps after 2 warm-ups, host clock); peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    if out is not None:
+        out.update(s_per_step=dt, images_per_s=b / dt, peak_gib=peak)
+    if profile:
+        profile_call(lambda: step(state, batch, lr))
     del nets, state, step, batch, losses, vis
     torch.cuda.empty_cache()
     return launches
@@ -2832,6 +2887,31 @@ def sp_runs(P, cfg, TS, ST, data, model):
     out["p1"] = {net: {k: t.detach().cpu().clone() for k, t in
                        getattr(nets, net).named_parameters()}
                  for net in TRAINED}
+    del nets, state
+    if model == 1:
+        # phase 12 (d): configuration (a), the synchronized BatchNorm's
+        # moments over the data ranks (the one process and the data job)
+        opt = sp_train_opt(cfg, data, model).replace(**DEFAULT_NORM)
+        nets = sp_nets(P, opt, 90)
+        batch = sp_batch(opt, 100)
+        shard = {k: v[mesh.data_rank * b:(mesh.data_rank + 1) * b]
+                 for k, v in batch.items()}
+        state = TS.create_train_state(opt, nets)
+        if mesh.size == 1:
+            out["bn_p0"] = {net: {k: t.detach().cpu().clone() for k, t in
+                                  getattr(nets, net).named_parameters()}
+                            for net in TRAINED}
+        losses, _ = ST.make_train_step(nets)(state, shard,
+                                             TS.lrs_for_epoch(opt, 1))
+        out["bn_losses"] = {k: float(v) for k, v in losses.items()}
+        out["bn_p1"] = {net: {k: t.detach().cpu().clone() for k, t in
+                              getattr(nets, net).named_parameters()}
+                        for net in TRAINED}
+        out["bn_stats"] = {k: t.cpu().clone() for net in TRAINED
+                           for k, t in getattr(nets, net).state_dict().items()
+                           if k.endswith(("running_mean", "running_var"))}
+        del nets, state
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2940,6 +3020,28 @@ def parallelism(P, cfg, TS, ST) -> dict:
                f"shard's fake {fw:.3g} <= 2e-4, each net's update relative "
                f"L2 <= 0.1 (" + ", ".join(f"{k} {v:.3g}"
                                           for k, v in ups.items()) + ")")
+    # phase 12 (d): configuration (a) at mesh_data 2 against one process:
+    # the BatchNorm moments are the global batch's
+    for r, res in enumerate(data_job):
+        lw = max(abs(res["bn_losses"][k] - v) / (abs(v) + 1e-2)
+                 for k, v in one["bn_losses"].items())
+        sw = max(_maxerr(res["bn_stats"][k], v) / max(float(v.abs().max()),
+                                                      1e-3)
+                 for k, v in one["bn_stats"].items())
+        ups = {net: _rel_l2(res["bn_p1"][net], one["bn_p1"][net],
+                            one["bn_p0"][net]) for net in TRAINED}
+        _check(len(one["bn_stats"]) > 0 and lw <= 2e-3 and sw <= 2e-3
+               and max(ups.values()) <= 0.1,
+               f"(d) default-norm train step 128 px, data rank {r} of 2 "
+               f"(global B2) vs one process: losses rel {lw:.3g} <= 2e-3, "
+               f"the {len(one['bn_stats'])} running statistics rel "
+               f"{sw:.3g} <= 2e-3, each net's update relative L2 <= 0.1 ("
+               + ", ".join(f"{k} {v:.3g}" for k, v in ups.items()) + ")")
+    _check(all(torch.equal(data_job[0]["bn_stats"][k],
+                           data_job[1]["bn_stats"][k])
+               for k in data_job[0]["bn_stats"]),
+           "(d) the data job's two ranks hold the same running statistics, "
+           "bit for bit")
     for job, what in ((model_job, "model"), (data_job, "data")):
         same = all(torch.equal(job[0]["p1"][n][k], job[1]["p1"][n][k])
                    for n in TRAINED for k in job[0]["p1"][n])
@@ -2972,6 +3074,251 @@ def parallelism(P, cfg, TS, ST) -> dict:
             "train": model_job[0]["train_launches"]}
 
 
+# ------------------------------------------------------------ phase 12
+
+# configuration (a): the reference's default norm_G
+# (spectralspadesyncbatch3x3: synchronized BatchNorm in every SPADE block),
+# neither --PONO nor --PONO_C; (b): the flagship plus every architecture
+# extra of the adaptors, the correspondence net and D, and the two noise
+# branches
+DEFAULT_NORM = dict(PONO=False, PONO_C=False)
+EXTRAS = dict(use_coordconv=True, adaptor_se=True, adaptor_nonlocal=True,
+              adaptor_res_deeper=True, dilation_conv=True, D_cam=1.0,
+              mask_noise=True, noise_for_mask=True)
+# per step of (b): the row warp's shift9 pair; --remat_full re-runs the
+# correspondence forward in the backward, so its shift9 forward twice
+REMAT_LAUNCHES = {False: _launches(**SHIFT9),
+                  True: _launches(attend_shift9=2, attend_shift9_backward=1)}
+
+
+def calibrate_batchnorm(P, L, nets, batch) -> None:
+    """Every BatchNorm's running statistics set to one train-mode forward's
+    batch moments (momentum 1 for that forward), as a trained net holds
+    them: at their initial 0 and 1 the eval forward of weights at unit
+    signal scale saturates the generator's tanh."""
+    from cocosnet_tpu_torch.nn.norms import BatchNorm
+    norms = [m for net in (nets.gen, nets.corr) for m in net.modules()
+             if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.momentum = 1.0
+    nets.set_train(True)
+    try:
+        with torch.no_grad(), L.training():
+            P.generate_fake(nets, P.preprocess_input(nets.opt, batch),
+                            train=True)
+    finally:
+        nets.set_train(False)
+        for m in norms:
+            m.momentum = 0.1
+
+
+def graph_check(P, L, g, opt, tag) -> dict:
+    """tools/serve.make_serve_step of `opt` (bf16 policy, weights at unit
+    signal scale) at its batch: the capture call launches one eager
+    forward's kernels, and two replays after one capture give the eager
+    forward's bits. Returns the eager forward's launches and the graph's
+    and the eager forward's ms."""
+    from cocosnet_tpu_torch.tools import serve as SV
+    from cocosnet_tpu_torch.train.steps import make_inference_step
+    L.set_compute_dtype(torch.bfloat16)
+    nets = P.Pix2PixNets(opt, seed=0)
+    condition_weights(nets.corr, g, "cuda")
+    condition_weights(nets.gen, g, "cuda")
+    infer = make_inference_step(nets)
+    b = opt.batchSize
+    batches = [{k: v.cuda() for k, v in make_batch(
+        g, b, 256, 256, opt.semantic_nc).items()} for _ in range(2)]
+    calibrate_batchnorm(P, L, nets, batches[0])
+    counted = _counted()
+    _zero_counts(counted)
+    want = [SV.quantize(infer(batches[0])["fake_image"])]
+    torch.cuda.synchronize()
+    forward = {k: fn.launches for k, fn in counted.items()}
+    want.append(SV.quantize(infer(batches[1])["fake_image"]))
+    step = SV.make_serve_step(nets, b)
+    step.warm_up()
+    _zero_counts(counted)
+    step.capture()
+    torch.cuda.synchronize()
+    capture = {k: fn.launches for k, fn in counted.items()}
+    _check(capture == forward, f"{tag}: the capture call launched "
+           f"{capture}, one eager forward's launches")
+    for i, batch in enumerate(batches):
+        got = step(batch).clone()
+        std = float(got.float().std())
+        _check(torch.equal(got, want[i]) and std > 10,
+               f"{tag}: replay {i + 1} after one capture has the eager "
+               f"forward's bits (std {std:.1f} levels)")
+    graph_ms = time_ms(lambda: step(batches[0]), runs=10)
+    eager_ms = time_ms(lambda: SV.quantize(infer(batches[0])["fake_image"]),
+                       runs=10)
+    print(f"{tag}: graph {graph_ms:.2f} ms, eager {eager_ms:.2f} ms per "
+          f"forward (CUDA events, 10 runs; {b * 1e3 / graph_ms:.2f} vs "
+          f"{b * 1e3 / eager_ms:.2f} images/s)", flush=True)
+    del step, nets, infer, batches, want
+    torch.cuda.empty_cache()
+    L.set_compute_dtype(None)
+    return dict(launches=forward, graph_ms=graph_ms, eager_ms=eager_ms)
+
+
+def extras_forward(P, cfg, L, C, g) -> dict:
+    """(b)'s B6 eager forward at flagship width (bf16 policy): its launches
+    against the routing's prediction from its recorded convs (the one-hot
+    conv and the shift9 forward beside them), the outputs' shapes and
+    ranges, ms and images/s, then the conv3x3.cu table of the forward
+    (forward_conv_table), the coordconv stack's 410->410 statistics conv
+    among its rows. Returns the launches and that row."""
+    from cocosnet_tpu_torch.tools import ab_dw as AB
+    L.set_compute_dtype(torch.bfloat16)
+    opt = inference_opt(cfg, 3).replace(**EXTRAS)
+    nets = P.Pix2PixNets(opt, seed=0)
+    condition_weights(nets.corr, g, "cuda")
+    condition_weights(nets.gen, g, "cuda")
+    batch = make_batch(g, 6, 256, 256, opt.semantic_nc)
+    data = P.preprocess_input(opt, batch)
+    counted = _counted()
+    _zero_counts(counted)
+    res = []
+    records = AB.record_convs(lambda: res.append(P.inference(nets, data)))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    predicted = _launches(attend_shift9=1, **AB.predicted_launches(records))
+    tag = "(b) extras B6 forward"
+    _check(launches == predicted and launches["conv3x3_onehot"] == 1,
+           f"{tag}: launched {launches} == {predicted}, the routing's "
+           f"prediction from its {len(records)} convs (the dilated ones on "
+           f"cuDNN)")
+    out = res[0]
+    fake = out["fake_image"]
+    _check(tuple(fake.shape) == (6, 256, 256, 3)
+           and bool(torch.isfinite(fake).all())
+           and float(fake.abs().max()) <= 1.0
+           and bool(torch.isfinite(out["warp_mask"]).all()),
+           f"{tag}: fake_image (6, 256, 256, 3) finite in [-1, 1], "
+           f"warp_mask finite")
+    fwd_ms = time_ms(lambda: P.inference(nets, data), runs=5)
+    print(f"{tag}: {fwd_ms:.2f} ms per forward, {6e3 / fwd_ms:.2f} "
+          f"images/s (CUDA events, 5 runs); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del nets, data, res, out, fake
+    torch.cuda.empty_cache()
+    L.set_compute_dtype(None)
+    table = forward_conv_table(
+        P, cfg, L, C, g, opt=opt, batch=batch, tag="(b) extras B6",
+        expected=launches["conv3x3_fused"] + launches["conv3x3_fused_stats"])
+    row = table["6,64,64,410->410,reflect,stats"]
+    return dict(launches=launches, row=row, ms=fwd_ms)
+
+
+def explicit_matrix_check(P, cfg, g) -> None:
+    """(c): the explicit-matrix correspondence (return_corr, and
+    WTA_scale_weight 1e-4) on the card against the CPU's plain run, at a
+    small size (64 x 64, ngf 16, f32): the (B, 256, 256) matrix at 1e-4 of
+    its scale (1/tau amplifies the descriptors' f32 error 100x), the warp
+    and the mask it makes at atol 5e-4."""
+    opt = cfg.test_defaults(
+        dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,
+        crop_size=64, load_size=64, batchSize=2, ngf=16, maskmix=True,
+        PONO=True, PONO_C=True, warp_mask_losstype="direct", isTrain=False)
+    batch = make_batch(g, 2, 64, 64, opt.semantic_nc)
+    cpu = P.Pix2PixNets(opt, device="cpu", seed=1)
+    condition_weights(cpu.corr, g, "cpu")
+    gpu = P.Pix2PixNets(opt, device="cuda", seed=1)
+    gpu.corr.load_state_dict(cpu.corr.state_dict())
+    outs = []
+    for nets, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        d = P.preprocess_input(opt, batch, device=dev)
+        args = (d["ref_image"], d["input_semantics"], d["ref_semantics"])
+        with torch.no_grad():
+            outs.append((nets.corr(*args, return_corr=True)["corr"].cpu(),
+                         {k: v.cpu() for k, v in nets.corr(
+                             *args, WTA_scale_weight=1e-4).items()}))
+    (want, want_w), (got, got_w) = outs
+    scale = float(want.abs().max())
+    err = _maxerr(got, want)
+    werr = max(_maxerr(got_w[k], want_w[k]) for k in ("warp_out",
+                                                      "warp_mask"))
+    _check(tuple(got.shape) == (2, 256, 256) and err <= 1e-4 * scale
+           and werr <= 5e-4,
+           f"(c) explicit-matrix correspondence on the card vs the CPU: corr "
+           f"max err {err:.3g} <= 1e-4 x {scale:.3g}; WTA 1e-4 warp and mask "
+           f"max err {werr:.3g} <= 5e-4")
+
+
+def architecture_branches(P, cfg, L, C, TS, ST, g) -> dict:
+    """Phase 12: the branches off the flagship at flagship width (256 px,
+    ngf / ndf 64, match_kernel 3, bf16 policy):
+    (a) the reference's default norm (synchronized BatchNorm SPADE, no
+        PONO): the small slice and two small f32 train steps against the
+        CPU's plain run (phase 3 / 3b's checks, the running statistics
+        too), the B6 eager forward and its serve graph, B8 training;
+    (b) the extras (coordconv, SE, nonlocal, the deeper dilated adaptor,
+        the CAM discriminator, mask noise and noise_for_mask): the B6
+        forward with its conv3x3.cu table, B8 training without remat, with
+        --remat (conv_small) and with --remat --remat_full, then B16 with
+        --remat;
+    (c) the explicit-matrix correspondence at a small size.
+    Returns {path: launches} and the records of its kernel rows."""
+    out, info = {}, {}
+    t12 = time.perf_counter()
+    # (a)
+    reference_check(P, cfg, g, 3, flags=DEFAULT_NORM,
+                    tag=" (a) default norm")
+    opt = small_train_opt(cfg, **DEFAULT_NORM)
+    ref = cpu_train_reference(P, L, TS, ST, g, opt,
+                              make_batch(g, 1, 128, 256, opt.semantic_nc))
+    train_reference_check(P, L, TS, ST, ref, "(a) default norm",
+                          _corr_launches(3, "kernels"), "kernels")
+    del ref
+    torch.cuda.empty_cache()
+    graph = graph_check(P, L, g, inference_opt(cfg, 3).replace(
+        **DEFAULT_NORM), "(a) default norm serve graph B6")
+    _check(graph["launches"] == INFERENCE_LAUNCHES[3],
+           f"(a) default norm B6 forward launched {graph['launches']} == "
+           f"{INFERENCE_LAUNCHES[3]}")
+    out["(a) inference"] = graph["launches"]
+    L.set_compute_dtype(torch.bfloat16)
+
+    def full(batch=8, **kw):
+        return train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
+                         batchSize=batch, ngf=64, ndf=64, **kw)
+
+    rec = {}
+    out["(a) train step"] = train_path(
+        P, TS, ST, g, full(**DEFAULT_NORM),
+        lambda: make_batch(g, 8, 256, 256, 151),
+        "(a) default norm training", TRAIN_LAUNCHES[(3, "kernels")],
+        FLAGSHIP_LOSS_KEYS, 3, profile=True, out=rec)
+    info["(a) B8"] = rec
+    print(f"phase 12 (a) done in {time.perf_counter() - t12:.0f} s",
+          flush=True)
+    # (b)
+    L.set_compute_dtype(None)
+    fwd = extras_forward(P, cfg, L, C, g)
+    out["(b) inference"] = fwd["launches"]
+    info["(b) B6 ms"] = fwd["ms"]
+    L.set_compute_dtype(torch.bfloat16)
+    for b, remat, whole in ((8, False, False), (8, True, False),
+                            (8, True, True), (16, True, False)):
+        tag = (f"(b) extras B{b} training"
+               + (", --remat" if remat else "")
+               + (" --remat_full" if whole else ""))
+        rec = {}
+        out[tag] = train_path(
+            P, TS, ST, g, full(b, **EXTRAS, remat=remat,
+                               remat_full=whole),
+            lambda: make_batch(g, b, 256, 256, 151), tag,
+            REMAT_LAUNCHES[whole], FLAGSHIP_LOSS_KEYS, 3, profile=False,
+            out=rec)
+        info[tag] = rec
+    L.set_compute_dtype(None)
+    # (c)
+    explicit_matrix_check(P, cfg, g)
+    print("phase 12 readings: " + json.dumps(info), flush=True)
+    print(f"phase 12 took {time.perf_counter() - t12:.0f} s", flush=True)
+    return out, fwd["row"]
+
+
 def kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g, g_widths) -> dict:
     """Phase 2: each kernel against its plain version at the shapes of its
     paths, timed; the inputs drawn from g, those of the shift9 backward at
@@ -2979,15 +3326,18 @@ def kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g, g_widths) -> dict:
     own: every later check of g draws what it drew before them). Returns
     the kernels' records by name."""
     rows = {}
+    # pono_c off: the centering of the reference's default norm (no
+    # --PONO_C), phase 12's configuration (a)
     for pono_c in (True, False):
         r = check_shift9(S, g, pono_c=pono_c)
-        rows.setdefault("attend_shift9", r)
+        rows["attend_shift9" + ("" if pono_c else " pono_c off")] = r
     # the backward at the flagship training shape (batch 8), then an image
     # width of 128 (a 512 px crop), forward and backward
     for pono_c in (True, False):
         r = check_shift9_bwd(S, g, b=8, h=64, w=64, c=256, d=154,
                              pono_c=pono_c, timed=True)
-        rows.setdefault("attend_shift9_backward", r)
+        rows["attend_shift9_backward"
+             + ("" if pono_c else " pono_c off")] = r
     check_shift9_bwd(S, g, b=1, h=128, w=128, c=256, d=154, pono_c=True,
                      timed=False)
     # the backward at the warp widths of the other configurations' training
@@ -3003,6 +3353,8 @@ def kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g, g_widths) -> dict:
     rows["attend_shift9_backward D3 swapped"] = check_shift9_bwd(
         S, g_widths, b=8, h=64, w=64, c=256, d=3, pono_c=True, timed=True,
         swap=True)
+    rows["attend_shift9 D3 swapped"] = rows[
+        "attend_shift9_backward D3 swapped"].pop("forward")
     check_shift9_bwd(S, g_widths, b=8, h=64, w=64, c=256, d=48,
                      pono_c=True, timed=False, swap=True)
     conv_cases = [
@@ -3208,6 +3560,13 @@ def main() -> None:
     print(f"phase 11 took {time.perf_counter() - t11:.0f} s", flush=True)
     _phase_done(11, t_start)
 
+    # phase 12: the architecture branches off the flagship (the reference's
+    # default BatchNorm norm, the extras, remat, the explicit matrix)
+    branch_runs, row_410 = architecture_branches(
+        P, cfg, L, C, TS, ST, torch.Generator().manual_seed(14))
+    runs.update(branch_runs)
+    _phase_done(12, t_start)
+
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)
     src = {"attend_shift9": ("cocosnet_tpu_torch/csrc/shift9_fwd.cu",
@@ -3283,6 +3642,27 @@ def main() -> None:
                     name=name, route="cuda", source=src[base][0],
                     replaces=src[base][1], path=path,
                     launches=runs[path][base], **rows[name]))
+    # phase 12's rows: the shift9 pair at pono_c off (phase 2) with the
+    # launches of configuration (a)'s forward and step; the column warp's
+    # forward (phase 2) with celebahqedge's step (row and column warp at D
+    # 3); the coordconv stack's statistics conv of (b)'s forward table,
+    # with its count in that forward
+    for name, base, path in (
+            ("attend_shift9 pono_c off", "attend_shift9", "(a) inference"),
+            ("attend_shift9_backward pono_c off", "attend_shift9_backward",
+             "(a) train step"),
+            ("attend_shift9 D3 swapped", "attend_shift9",
+             "celebahqedge train step")):
+        kernels.append(dict(name=name, route="cuda", source=src[base][0],
+                            replaces=src[base][1], path=path,
+                            launches=runs[path][base], **rows[name]))
+    kernels.append(dict(
+        name="conv3x3_fused_stats 410->410 @64^2", route="cuda",
+        source=src["conv3x3_fused_stats"][0],
+        replaces=src["conv3x3_fused_stats"][1], path="(b) inference",
+        launches=row_410["count"], **{k: row_410[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}))
     print(f"chip_smoke.py ran in {time.perf_counter() - t_start:.0f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,6 +13,12 @@ exemplar / output comparison grid output/test/<name>/<i>.png, or with
 test.py does (reference test.py:27-69). Runs on the GPU; --platform cpu
 runs the kernels' plain versions on the CPU.
 
+Each batch's noise (--noise_for_mask) comes from a generator keyed by
+--seed and the batch index (noise_generator), as test.py folds the batch
+index into its key (test.py:91-94); the bits are the port's own. With
+--show_corr each batch's warped exemplars go to
+output/test/<name>_corr/<i>_<j>.png (test.py:98-102).
+
 --mesh_model N (the 512 px single-image inference of the README) shares
 the correlation's query rows over N ranks, and --mesh_data the batch, one
 worker process a card as the train twin runs them (cli/common.run_job):
@@ -29,6 +35,7 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from cocosnet_tpu_torch import mesh as M
 from cocosnet_tpu_torch import pix2pix as P
@@ -65,6 +72,12 @@ def main(argv=None):
                           all_devices=False)
 
 
+def noise_generator(seed: int, index: int, device) -> torch.Generator:
+    """The noise generator of batch `index`: --seed with the index folded
+    in."""
+    return torch.Generator(device).manual_seed(seed * 1_000_003 + index)
+
+
 def test_loop(opt, device, mesh: M.Mesh) -> InferenceRun:
     """The inference loop on this rank of `mesh`."""
     rank0 = mesh.rank == 0
@@ -96,9 +109,10 @@ def test_loop(opt, device, mesh: M.Mesh) -> InferenceRun:
         if i * opt.batchSize >= opt.how_many:
             break
         arrays, paths = to_device(batch, device)
-        fake = inference_step(arrays)["fake_image"]
+        out = inference_step(arrays, noise_generator(opt.seed, i, device))
+        fake, warp = out["fake_image"], out["warp_out"]
         if mesh.data > 1:   # the global batch, in data-rank order
-            fake = M.gather_data(fake)
+            fake, warp = M.gather_data(fake), M.gather_data(warp)
             batch = common.global_batch(batch)
             paths = {k: batch[k] for k in paths}
         fake = common.host(fake)
@@ -109,6 +123,11 @@ def test_loop(opt, device, mesh: M.Mesh) -> InferenceRun:
 
         if not rank0:
             continue
+        if opt.show_corr:
+            warp = (common.host(warp) + 1.0) / 2.0
+            for j in range(warp.shape[0]):
+                V.save_image(warp[j], os.path.join(
+                    save_root, "test", opt.name + "_corr", f"{i}_{j}.png"))
         if opt.save_per_img:
             root = os.path.join(save_root, "test_per_img", opt.name)
             imgs = (fake + 1.0) / 2.0

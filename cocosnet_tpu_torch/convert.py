@@ -8,7 +8,12 @@ onto its flax leaf with the same rules as the JAX package's
 its `_disc_name_map` (tools/convert_weights.py), read in the other
 direction, so a port state dict also converts back through those
 importers. The EMA shadows convert from the JAX TrainState's `ema` tree
-(params of gen and corr) with the same names.
+(params of gen and corr) with the same names. A BatchNorm's running_mean
+and running_var are the flax `batch_stats` mean and var, its affine
+weight the `scale` (checkpoints.py:144, :205-212); num_batches_tracked
+has no flax counterpart and keeps the module's own count. The CAM head's
+gap_fc / gmp_fc are the flax leaves gap_fc_kernel / gap_fc_u / gap_fc_v
+(and gmp_) of their discriminator.
 """
 
 from __future__ import annotations
@@ -30,9 +35,15 @@ def flax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...], str]:
         rest = parts[2:]
         if rest[:1] == ["0"]:
             rest = rest[1:]
-            if rest[:1] == ["0"]:
-                rest = ["conv"] + rest[1:]
+            if rest[:1] in (["0"], ["1"]):
+                rest = ["conv" if rest[0] == "0" else "norm"] + rest[1:]
         parts = [parts[0], parts[1] + "_conv"] + rest
+    if len(parts) == 3 and parts[1] in ("gap_fc", "gmp_fc"):
+        leaf = {"weight_orig": "kernel", "weight_u": "u",
+                "weight_v": "v"}[parts[2]]
+        return ("spectral" if leaf in ("u", "v") else "params",
+                (parts[0], f"{parts[1]}_{leaf}"),
+                "transpose" if leaf == "kernel" else "same")
     leaf, path = parts[-1], []
     for i, p in enumerate(parts[:-1]):
         if not p.isdigit():
@@ -42,7 +53,9 @@ def flax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...], str]:
         if prev == "layer":                  # layer.0 -> layer_0
             path[-1:] = [f"layer_{p}"]
         elif prev.startswith(("layer", "degridding")):
-            path.append("conv")              # layer1.0 -> layer1/conv
+            # layer1.0 -> layer1/conv, its batch norm layer1.1 ->
+            # layer1/norm
+            path.append("conv" if p == "0" else "norm")
         elif prev != "mlp_shared":           # mlp_shared.1 -> mlp_shared
             path.append(p)
     if leaf in ("weight", "weight_orig"):
@@ -50,6 +63,9 @@ def flax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...], str]:
             return "params", (*path, "kernel"), "hwio"
         if ndim == 2:
             return "params", (*path, "kernel"), "transpose"
+        if leaf == "weight" and path[-1:] != ["prelu"]:
+            # a BatchNorm's affine weight; PReLU's one slope is alpha
+            return "params", (*path, "scale"), "same"
         if leaf == "weight":
             return "params", (*path, "alpha"), "reshape"
     if leaf == "bias":
@@ -60,6 +76,12 @@ def flax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...], str]:
         return "spectral", (*path, "v"), "same"
     if leaf == "gamma":
         return "params", (*path, "gamma"), "reshape"
+    if leaf == "running_mean":
+        return "batch_stats", (*path, "mean"), "same"
+    if leaf == "running_var":
+        return "batch_stats", (*path, "var"), "same"
+    if leaf == "num_batches_tracked":
+        return "batch_stats", tuple(path), "keep"
     raise KeyError(f"no flax counterpart for {name!r}")
 
 
@@ -72,6 +94,8 @@ def _get(tree: Mapping, path) -> np.ndarray:
 def _leaf(name: str, ref: torch.Tensor, variables: Mapping) -> torch.Tensor:
     """The port tensor `name` (shaped like ref) from one net's variables."""
     collection, path, kind = flax_path(name, ref.dim())
+    if kind == "keep":
+        return ref.detach().cpu().clone()
     v = _get(variables[collection], path)
     if kind == "hwio":
         v = np.transpose(v, (3, 2, 0, 1))

@@ -227,6 +227,36 @@ def data_sum(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+class _DataSum(torch.autograd.Function):
+    """all_reduce(sum) over the data group, whose gradient is the data
+    group's sum of the ranks' gradients: every rank's loss reads the
+    global sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def data_sum_grad(x: torch.Tensor) -> torch.Tensor:
+    """x summed over the data ranks with its gradient (the synchronized
+    BatchNorm's moments, nn/norms.py); x where the data axis has one
+    rank. The model group is not summed over: its ranks hold the same
+    maps."""
+    mesh = global_mesh()
+    if mesh.data_group is None:
+        return x
+    return _DataSum.apply(x, mesh.data_group)
+
+
 def gather_data(x: torch.Tensor) -> torch.Tensor:
     """The global batch of a per-rank tensor: the data ranks' shards of the
     leading dimension, concatenated in data-rank order."""

@@ -7,7 +7,10 @@ names and OIHW shapes (`weight`, `bias`; `weight_orig`, `weight_u`,
 `weight_v` under spectral norm). Spectral norm follows
 torch.nn.utils.spectral_norm: a module in train mode advances one power
 iteration per forward and stores u and v; in eval mode sigma = u . (W v)
-comes from the stored u and v, unchanged.
+comes from the stored u and v, unchanged. Inside a recomputed region
+(nn/remat.py) the recompute reads back the u and v of the first run.
+A dilated conv runs on the library, as the JAX package's gates send it to
+XLA (layers.py:132, :181).
 
 Inside `training()` the convs route as the JAX package's training trace
 routes them (pallas_conv.training_trace): by default every conv is a
@@ -34,6 +37,7 @@ import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
+from cocosnet_tpu_torch.nn import remat
 from cocosnet_tpu_torch.ops.conv3x3 import (conv3x3_dw_supported,
                                             conv3x3_fused,
                                             conv3x3_fused_stats,
@@ -183,10 +187,11 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
-           stride: int = 1, padding: int = 0, reflect: bool = False,
-           want_stats: bool = False):
+           stride: int = 1, padding: int = 0, dilation: int = 1,
+           reflect: bool = False, want_stats: bool = False):
     """torch F.conv2d semantics on an NHWC input and an HWIO kernel;
-    reflect=True applies a ReflectionPad2d ring of (k-1)/2 first.
+    reflect=True applies a ReflectionPad2d ring of dilation * (k-1)/2
+    first.
     Under the bf16 policy operands and output are bf16, accumulation f32.
     With want_stats returns (y, mean, var): the instance-norm moments of y,
     f32 (B, 1, 1, Cout), biased variance.
@@ -207,39 +212,41 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
         raise ValueError("a reflect ring takes padding=0 and stride=1")
     if isinstance(x, OneHotLabels):
         if (tuple(kernel.shape[:2]) == (3, 3) and stride == 1
-                and padding == 1 and not reflect
+                and dilation == 1 and padding == 1 and not reflect
                 and conv3x3_onehot_supported(x.labels.shape, x.n_classes,
                                              kernel.shape[3])):
             return conv3x3_onehot(x.labels, kernel, bias, dtype=x.dtype,
                                   want_stats=want_stats)
         return conv2d(x.dense(), weight, bias, stride=stride,
-                      padding=padding, reflect=reflect,
+                      padding=padding, dilation=dilation, reflect=reflect,
                       want_stats=want_stats)
     gate = dict(stride=stride, padding=1 if reflect else padding)
-    if want_stats and conv3x3_stats_supported(x.shape, kernel.shape, **gate):
+    kernels = dilation == 1     # no kernel takes a dilated conv
+    if want_stats and kernels and conv3x3_stats_supported(
+            x.shape, kernel.shape, **gate):
         return conv3x3_fused_stats(x, kernel, bias, reflect=reflect)
     if want_stats:
         y = conv2d(x, weight, bias, stride=stride, padding=padding,
-                   reflect=reflect)
+                   dilation=dilation, reflect=reflect)
         y32 = y.float()
         mean = y32.mean(dim=(1, 2), keepdim=True)
         var = y32.var(dim=(1, 2), unbiased=False, keepdim=True)
         return y, mean, var
-    if conv3x3_supported(x.shape, kernel.shape, **gate):
+    if kernels and conv3x3_supported(x.shape, kernel.shape, **gate):
         return conv3x3_fused(x, kernel, bias, reflect=reflect)
-    if (_IN_TRAINING and tuple(kernel.shape[:2]) == (3, 3) and stride == 1
-            and (reflect or padding == 1)
+    if (_IN_TRAINING and kernels and tuple(kernel.shape[:2]) == (3, 3)
+            and stride == 1 and (reflect or padding == 1)
             and conv3x3_dw_supported(x.shape, kernel.shape,
                                      reflect=reflect)):
         # the weight as the caller holds it: its dW arrives in f32
         return conv3x3_xla_pdw(x, weight, bias, reflect)
     xc = _nchw(x)
     if reflect:
-        p = (kernel.shape[0] - 1) // 2
+        p = dilation * (kernel.shape[0] - 1) // 2
         xc = F.pad(xc, (p, p, p, p), mode="reflect")
     y = F.conv2d(xc, kernel.permute(3, 2, 0, 1),
                  None if bias is None else bias.to(x.dtype),
-                 stride=stride, padding=padding)
+                 stride=stride, padding=padding, dilation=dilation)
     return _nhwc(y)
 
 
@@ -268,6 +275,58 @@ def _unit_normal(n: int, generator: torch.Generator) -> torch.Tensor:
     return _l2_normalize(torch.randn(n, generator=generator))
 
 
+def _init_weight(mod: tnn.Module, shape, weight_norm: Optional[str]) -> None:
+    """`weight`, or under a weight norm `weight_orig` (and the spectral
+    `weight_u`, `weight_v` buffers), as torch's spectral_norm names them."""
+    if weight_norm not in (None, "spectral", "equal_lr"):
+        raise ValueError(f"unknown weight_norm {weight_norm!r}")
+    mod.weight_norm = weight_norm
+    w = tnn.Parameter(torch.empty(*shape))
+    if weight_norm is None:
+        mod.weight = w
+        return
+    mod.weight_orig = w
+    if weight_norm == "spectral":
+        mod.register_buffer("weight_u", torch.empty(shape[0]))
+        mod.register_buffer("weight_v", torch.empty(w[0].numel()))
+
+
+def _reset_weight(mod: tnn.Module, generator: torch.Generator) -> None:
+    w = mod.weight if mod.weight_norm is None else mod.weight_orig
+    xavier_normal_(w, INIT_GAIN, generator)
+    with torch.no_grad():
+        if mod.bias is not None:
+            mod.bias.zero_()
+        if mod.weight_norm == "spectral":
+            mod.weight_u.copy_(_unit_normal(w.shape[0], generator))
+            mod.weight_v.copy_(_unit_normal(w[0].numel(), generator))
+
+
+def _effective_weight(mod: tnn.Module) -> torch.Tensor:
+    """The weight the layer applies. Under spectral norm in train mode one
+    power iteration, v = normalize(W^T u), u = normalize(W v), runs first
+    and stores u and v (without gradient, as in torch); a recompute
+    (nn/remat.py) reads back the u and v its first run used instead of
+    advancing them again."""
+    if mod.weight_norm is None:
+        return mod.weight
+    w = mod.weight_orig
+    if mod.weight_norm == "equal_lr":
+        return w * (2.0 / w[0].numel()) ** 0.5
+    wm = w.reshape(w.shape[0], -1)
+    u, v = mod.weight_u, mod.weight_v
+    if mod.training:
+        def power_iteration():
+            with torch.no_grad():
+                v = _l2_normalize(wm.t() @ mod.weight_u)
+                u = _l2_normalize(wm @ v)
+                mod.weight_u.copy_(u)
+                mod.weight_v.copy_(v)
+            return u, v
+        u, v = remat.stateful(power_iteration)
+    return w / torch.dot(u, wm @ v)
+
+
 class Conv2d(tnn.Module):
     """Conv with torch-style symmetric zero padding, or with reflect_pad a
     ReflectionPad2d ring that the conv applies itself (so the 3x3 kernel
@@ -278,59 +337,43 @@ class Conv2d(tnn.Module):
     """
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, *,
-                 stride: int = 1, padding: int = 0, use_bias: bool = True,
-                 weight_norm: Optional[str] = None,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 use_bias: bool = True, weight_norm: Optional[str] = None,
                  reflect_pad: bool = False):
         super().__init__()
-        if weight_norm not in (None, "spectral", "equal_lr"):
-            raise ValueError(f"unknown weight_norm {weight_norm!r}")
-        self.stride, self.padding = stride, padding
-        self.weight_norm = weight_norm
+        self.stride, self.padding, self.dilation = stride, padding, dilation
         self.reflect_pad = reflect_pad
         k = kernel_size
-        w = tnn.Parameter(torch.empty(cout, cin, k, k))
-        if weight_norm is None:
-            self.weight = w
-        else:
-            self.weight_orig = w
-            if weight_norm == "spectral":
-                self.register_buffer("weight_u", torch.empty(cout))
-                self.register_buffer("weight_v", torch.empty(cin * k * k))
+        _init_weight(self, (cout, cin, k, k), weight_norm)
         self.bias = tnn.Parameter(torch.empty(cout)) if use_bias else None
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        w = self.weight if self.weight_norm is None else self.weight_orig
-        xavier_normal_(w, INIT_GAIN, generator)
-        with torch.no_grad():
-            if self.bias is not None:
-                self.bias.zero_()
-            if self.weight_norm == "spectral":
-                self.weight_u.copy_(_unit_normal(w.shape[0], generator))
-                self.weight_v.copy_(_unit_normal(w[0].numel(), generator))
-
-    def effective_weight(self) -> torch.Tensor:
-        """The OIHW weight the conv applies. Under spectral norm in train
-        mode one power iteration, v = normalize(W^T u), u = normalize(W v),
-        runs first and stores u and v (without gradient, as in torch)."""
-        if self.weight_norm is None:
-            return self.weight
-        w = self.weight_orig
-        if self.weight_norm == "equal_lr":
-            return w * (2.0 / w[0].numel()) ** 0.5
-        wm = w.reshape(w.shape[0], -1)
-        u, v = self.weight_u, self.weight_v
-        if self.training:
-            with torch.no_grad():
-                v = _l2_normalize(wm.t() @ u)
-                u = _l2_normalize(wm @ v)
-                self.weight_u.copy_(u)
-                self.weight_v.copy_(v)
-        return w / torch.dot(u, wm @ v)
+    reset_parameters = _reset_weight
+    effective_weight = _effective_weight
 
     def forward(self, x, want_stats: bool = False):
         return conv2d(x, self.effective_weight().permute(2, 3, 1, 0),
                       self.bias, stride=self.stride, padding=self.padding,
-                      reflect=self.reflect_pad, want_stats=want_stats)
+                      dilation=self.dilation, reflect=self.reflect_pad,
+                      want_stats=want_stats)
+
+
+class Linear(tnn.Module):
+    """The JAX package's Dense on the last dim, in f32: weight (out, in),
+    xavier-normal at gain 0.02, zero bias, optional spectral or
+    equal-lr weight norm (the CAM discriminator's gap_fc / gmp_fc)."""
+
+    def __init__(self, cin: int, cout: int, *, use_bias: bool = True,
+                 weight_norm: Optional[str] = None):
+        super().__init__()
+        _init_weight(self, (cout, cin), weight_norm)
+        self.bias = tnn.Parameter(torch.empty(cout)) if use_bias else None
+
+    reset_parameters = _reset_weight
+    effective_weight = _effective_weight
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.float(), self.effective_weight().t())
+        return y if self.bias is None else y + self.bias
 
 
 class PReLU(tnn.Module):

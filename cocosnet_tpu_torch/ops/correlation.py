@@ -47,3 +47,25 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * n * k.shape[1] >= (1 << 26):
         return attend_chunked(q, k, v, tau)
     return attend_reference(q, k, v, tau)
+
+
+class _WTAScale(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f, scale):
+        keep = f == f.amax(dim=-1, keepdim=True)
+        ctx.save_for_backward(keep)
+        ctx.scale = scale
+        return torch.where(keep, f, f * scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        keep, = ctx.saved_tensors
+        return torch.where(keep, g, g * ctx.scale), None
+
+
+def wta_scale(f: torch.Tensor, scale: float = 1e-4) -> torch.Tensor:
+    """Winner-take-all scaling (correspondence.py:38-77 of the reference;
+    ops/correlation.py:90-110 of the JAX package, with its custom VJP): the
+    row max kept, the rest times `scale`; the backward scales the non-max
+    gradients the same way. Ties at the max count as max."""
+    return _WTAScale.apply(f, scale)

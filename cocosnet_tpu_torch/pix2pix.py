@@ -12,7 +12,7 @@ for the CPU: with no GPU and no explicit device="cpu" they raise.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,8 +23,11 @@ from cocosnet_tpu_torch.losses.contextual import contextual_loss
 from cocosnet_tpu_torch.losses.gan import (feature_matching_loss, gan_loss,
                                            mse_loss, weighted_l1_loss)
 from cocosnet_tpu_torch.models.correspondence import CorrespondenceNet
+from cocosnet_tpu_torch.models.correspondence import uses_ref_noise
 from cocosnet_tpu_torch.models.discriminator import MultiscaleDiscriminator
-from cocosnet_tpu_torch.models.generator import SPADEGenerator
+from cocosnet_tpu_torch.models.generator import (DomainClassifier,
+                                                 SPADEGenerator)
+from cocosnet_tpu_torch.nn import remat
 from cocosnet_tpu_torch.nn.layers import get_compute_dtype, init_weights
 from cocosnet_tpu_torch.nn.vgg import VGG19Features
 from cocosnet_tpu_torch.ops.image import (avg_pool, one_hot_scatter,
@@ -34,15 +37,6 @@ Batch = Dict[str, torch.Tensor]
 
 VGG_KEYS = ["r12", "r22", "r32", "r42", "r52"]
 FM_WEIGHTS = [1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0]
-
-# flags whose branches are not ported yet, with the value the port runs
-_PORTED = dict(mask_noise=False, noise_for_mask=False,
-               use_coordconv=False, show_corr=False,
-               adaptor_res_deeper=False, adaptor_nonlocal=False,
-               adaptor_se=False,
-               D_cam=0.0, remat=False, remat_full=False,
-               netD="multiscale", netD_subarch="n_layer")
-
 
 def resolve_device(device=None) -> torch.device:
     """`device`, or CUDA when it is None; raises when CUDA is asked for
@@ -62,27 +56,32 @@ OTHER_MODES = ("celebahq", "celebahqedge", "deepfashion")
 
 
 def check_ported(opt: Options) -> None:
-    """Raises on a configuration whose branches the port does not have."""
-    bad = {k: getattr(opt, k) for k, v in _PORTED.items()
-           if getattr(opt, k) != v}
-    if opt.match_kernel not in (1, 3):
+    """Raises on a configuration the port (as the JAX package) has no
+    branch for: an even match_kernel (the unfold is centred), an unknown
+    dataset mode, mask loss type or --remat_policy."""
+    bad = {}
+    if opt.match_kernel < 1 or opt.match_kernel % 2 == 0:
         bad["match_kernel"] = opt.match_kernel
     if opt.dataset_mode not in MASK_MODES + OTHER_MODES:
         bad["dataset_mode"] = opt.dataset_mode
     if opt.warp_mask_losstype not in ("none", "direct", "cycle"):
         bad["warp_mask_losstype"] = opt.warp_mask_losstype
-    if opt.weight_domainC > 0 and opt.domain_rela:
-        bad["weight_domainC"] = opt.weight_domainC
+    if opt.remat_policy not in remat.POLICIES + ("",):
+        bad["remat_policy"] = opt.remat_policy
     if bad:
-        raise NotImplementedError(f"not ported yet: {bad}")
+        raise NotImplementedError(f"not ported: {bad}")
 
 
 class Pix2PixNets:
     """The generator and the correspondence net, and with opt.isTrain the
     multiscale discriminator and the frozen VGG19, with seeded random
     weights (load real ones with convert.load_flax_variables), in eval mode
-    on `device`. A train step puts gen, corr and disc in train mode
-    (`set_train`) for its own extent."""
+    on `device`; with --weight_domainC > 0 and --domain_rela the domain
+    classifier, whose parameters train beside D's and which no loss
+    calls (pix2pix.py:47-49, :83-86). A train step puts the nets in train
+    mode (`set_train`) for its own extent. netD / netD_subarch name the
+    only discriminator there is, as in the JAX package, which reads
+    neither."""
 
     def __init__(self, opt: Options, device=None, seed: int = 0):
         check_ported(opt)
@@ -94,18 +93,23 @@ class Pix2PixNets:
         self.disc = MultiscaleDiscriminator(opt) if opt.isTrain else None
         self.vgg = (VGG19Features(opt.vgg_normal_correct) if opt.isTrain
                     else None)
+        self.domain_classifier = (
+            DomainClassifier(opt)
+            if opt.weight_domainC > 0 and opt.domain_rela else None)
         self.perceptual_layer = -1 if opt.which_perceptual == "5_2" else -2
         for net in self.modules():
             init_weights(net, gen)
             net.to(self.device).eval()
 
     def modules(self) -> List[torch.nn.Module]:
-        return [m for m in (self.corr, self.gen, self.disc, self.vgg)
-                if m is not None]
+        return [m for m in (self.corr, self.gen, self.disc, self.vgg,
+                            self.domain_classifier) if m is not None]
 
     def set_train(self, flag: bool) -> None:
-        """Train mode advances every spectral norm's power iteration."""
-        for net in (self.corr, self.gen, self.disc):
+        """Train mode advances every spectral norm's power iteration and
+        normalizes every BatchNorm with its batch's moments, updating its
+        running statistics."""
+        for net in (self.corr, self.gen, self.disc, self.domain_classifier):
             if net is not None:
                 net.train(flag)
 
@@ -170,8 +174,30 @@ def preprocess_input(opt: Options, data: Dict[str, np.ndarray],
                 ref_semantics=ref_semantics)
 
 
-def generate_fake(nets: Pix2PixNets, data: Batch,
-                  train: bool = False) -> Batch:
+def draw_noise(opt: Options, data: Batch, generator: torch.Generator,
+               train: bool) -> Dict[str, torch.Tensor]:
+    """The correspondence net's standard-normal draws from `generator`, as
+    its `seg_noise` / `ref_seg_noise` arguments: the label map's for
+    --mask_noise (training), the exemplar's feature-grid mask's for
+    --noise_for_mask (eval, or training past --mask_epoch); {} where
+    neither applies. Drawn before any recomputed region, so that the
+    recompute sees the same noise (torch.utils.checkpoint restores the
+    global generator, not an explicit one)."""
+    sem = data["input_semantics"]
+    out = {}
+    if opt.mask_noise and train:
+        out["seg_noise"] = torch.randn(sem.shape, generator=generator,
+                                       device=sem.device)
+    if uses_ref_noise(opt, train):
+        b, h, w, c = data["ref_semantics"].shape
+        out["ref_seg_noise"] = torch.randn(
+            (b, h // opt.down, w // opt.down, c), generator=generator,
+            device=sem.device)
+    return out
+
+
+def generate_fake(nets: Pix2PixNets, data: Batch, train: bool = False,
+                  noise: Optional[Dict[str, torch.Tensor]] = None) -> Batch:
     """Correspondence + warp, then the generator on the warp-conditioned
     map. In inference on ade20k and flickr input_semantics IS
     one_hot(input_label), so the correspondence net gets the integer map
@@ -180,7 +206,7 @@ def generate_fake(nets: Pix2PixNets, data: Batch,
     semantics (cocosnet_tpu/pix2pix.py:187-196). Training keeps the dense
     one-hot, as the JAX package does (its one-hot kernel has no backward),
     and hands the correspondence net the real image for its feature-pair
-    loss."""
+    loss. `noise`: draw_noise's draws (--mask_noise, --noise_for_mask)."""
     opt = nets.opt
     kw = {}
     if train:
@@ -188,7 +214,7 @@ def generate_fake(nets: Pix2PixNets, data: Batch,
     elif opt.dataset_mode in MASK_MODES and "input_label" in data:
         kw["seg_label"] = data["input_label"]
     corr_out = nets.corr(data["ref_image"], data["input_semantics"],
-                         data["ref_semantics"], **kw)
+                         data["ref_semantics"], **kw, **(noise or {}))
     cbn = cbn_input(opt, corr_out["warp_out"], data["input_semantics"])
     out = dict(corr_out)
     out["fake_image"] = nets.gen(data["input_semantics"], cbn)
@@ -196,10 +222,15 @@ def generate_fake(nets: Pix2PixNets, data: Batch,
 
 
 @torch.no_grad()
-def inference(nets: Pix2PixNets, data: Batch) -> Batch:
+def inference(nets: Pix2PixNets, data: Batch,
+              generator: Optional[torch.Generator] = None) -> Batch:
     """fake_image (B, H, W, 3) f32 in [-1, 1], warp_out, warp_mask and both
-    adaptive features, for a preprocessed batch."""
-    return generate_fake(nets, data)
+    adaptive features, for a preprocessed batch. `generator` feeds the
+    eval-time draw of --noise_for_mask (pix2pix.py:401-406); without one
+    that draw is a fixed one."""
+    noise = (draw_noise(nets.opt, data, generator, train=False)
+             if generator is not None else None)
+    return generate_fake(nets, data, noise=noise)
 
 
 # ------------------------------------------------------------ training
@@ -305,7 +336,12 @@ def compute_generator_losses(nets: Pix2PixNets, data: Batch,
         losses["GAN_Feat"] = (feature_matching_loss(pred_fake, pred_real)
                               * opt.lambda_feat)
 
-    fake_features = vgg_features(nets, generate_out["fake_image"])
+    # --remat: the VGG tower of the fake recomputed in the backward
+    # (pix2pix.py:349-353)
+    fake_features = (remat.checkpoint(vgg_features, nets,
+                                      generate_out["fake_image"])
+                     if opt.remat else
+                     vgg_features(nets, generate_out["fake_image"]))
     real_features = generate_out["real_features"]
     fm = 0.0
     for w, ff, rf in zip(FM_WEIGHTS, fake_features, real_features):

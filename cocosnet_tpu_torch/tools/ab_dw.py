@@ -48,19 +48,23 @@ def record_convs(fn) -> list:
         return (torch.is_grad_enabled() and isinstance(t, torch.Tensor)
                 and t.requires_grad)
 
-    def spy(x, kernel, bias=None, *, stride=1, padding=0, reflect=False,
-            want_stats=False):
+    def spy(x, kernel, bias=None, *, stride=1, padding=0, dilation=1,
+            reflect=False, want_stats=False):
         if depth[0] == 0:
             records.append(dict(
                 x_shape=tuple(x.shape), kernel_shape=tuple(kernel.shape),
-                stride=stride, padding=padding, reflect=reflect,
-                want_stats=want_stats, onehot=isinstance(x, L.OneHotLabels),
+                stride=stride, padding=padding, dilation=dilation,
+                reflect=reflect, want_stats=want_stats,
+                onehot=isinstance(x, L.OneHotLabels),
                 training=L._IN_TRAINING, x_grad=needs_grad(x),
                 w_grad=needs_grad(kernel), b_grad=needs_grad(bias)))
         depth[0] += 1
         try:
+            # dilation passed on only where a module sets it, so that a
+            # stubbed conv2d without the argument still records
+            more = {} if dilation == 1 else {"dilation": dilation}
             return orig(x, kernel, bias, stride=stride, padding=padding,
-                        reflect=reflect, want_stats=want_stats)
+                        reflect=reflect, want_stats=want_stats, **more)
         finally:
             depth[0] -= 1
 
@@ -76,11 +80,14 @@ def predicted_launches(records) -> collections.Counter:
     """The kernel launches the routing of nn.layers.conv2d predicts for the
     recorded calls under the environment as it stands: one per forward
     kernel; a conv3x3_fused backward (its dx) where x required grad; a
-    conv3x3_dw where the kernel or the bias did, on the dW route."""
+    conv3x3_dw where the kernel or the bias did, on the dW route. A
+    dilated conv launches none."""
     from cocosnet_tpu_torch.nn import layers as L
     from cocosnet_tpu_torch.ops import conv3x3 as C
     n = collections.Counter()
     for r in records:
+        if r.get("dilation", 1) != 1:
+            continue
         xs, ks = r["x_shape"], r["kernel_shape"]
         k3s1 = tuple(ks[:2]) == (3, 3) and r["stride"] == 1
         ctx = L.training() if r["training"] else contextlib.nullcontext()

@@ -4,12 +4,15 @@ cocosnet_tpu/train/checkpoints.py (orbax there).
 A training checkpoint is the directory `<checkpoints_dir>/<name>/state_<label>/`
 holding each net's state dict under the reference's file names
 (util/util.py:226-250, pix2pix_trainer.py:95-99):
-- net_G.pth, net_Corr.pth, net_D.pth;
+- net_G.pth, net_Corr.pth, net_D.pth, and with the domain classifier
+  net_DomainClassifier.pth;
 - with --use_ema, net_G_ema.pth and net_netCorr_ema.pth (the EMA shadows in
   place of the parameters, train.state.ema_state_dicts);
-- optimizer.pth: both Adam states and the step counter.
-The spectral weight_u / weight_v are buffers, so they travel in the state
-dicts. An inference checkpoint, `state_infer_<label>/` (`save_inference`,
+- optimizer.pth: both Adam states, the step counter and the state of the
+  noise generator.
+The spectral weight_u / weight_v and the BatchNorms' running_mean /
+running_var / num_batches_tracked are buffers, so they travel in the state
+dicts, under the reference's names. An inference checkpoint, `state_infer_<label>/` (`save_inference`,
 the output of tools/export_inference.py), holds net_G.pth and net_Corr.pth
 only, the EMA shadows in place of the parameters under --use_ema. Both
 are written beside their target and swapped in with two renames, so the
@@ -32,6 +35,7 @@ from cocosnet_tpu_torch.train import state as S
 
 # file name per net, and per net's EMA shadows (the reference's labels)
 NET_FILES = {"gen": "net_G.pth", "corr": "net_Corr.pth", "disc": "net_D.pth"}
+DOMAIN_FILE = "net_DomainClassifier.pth"
 EMA_FILES = {"gen": "net_G_ema.pth", "corr": "net_netCorr_ema.pth"}
 OPTIMIZER_FILE = "optimizer.pth"
 
@@ -62,18 +66,27 @@ def _save_swapped(path: str, files: Dict[str, object]) -> str:
     return path
 
 
+def _net_files(nets) -> Dict[str, str]:
+    """{net attribute: file name} of the nets `nets` holds."""
+    files = {n: f for n, f in NET_FILES.items()
+             if getattr(nets, n) is not None}
+    if getattr(nets, "domain_classifier", None) is not None:
+        files["domain_classifier"] = DOMAIN_FILE
+    return files
+
+
 def save_state(opt, state: S.TrainState, nets, label: str) -> str:
     """Writes state_<label>/ (see the module docstring) and returns its
     path."""
     files = {fname: _cpu(getattr(nets, name).state_dict())
-             for name, fname in NET_FILES.items()
-             if getattr(nets, name) is not None}
+             for name, fname in _net_files(nets).items()}
     if state.ema is not None:
         for name, sd in S.ema_state_dicts(state, nets).items():
             files[EMA_FILES[name]] = _cpu(sd)
     files[OPTIMIZER_FILE] = {"opt_g": state.opt_g.state_dict(),
                              "opt_d": state.opt_d.state_dict(),
-                             "step": state.step}
+                             "step": state.step,
+                             "noise": state.noise.get_state()}
     return _save_swapped(ckpt_dir(opt, label), files)
 
 
@@ -115,16 +128,15 @@ def load_state(opt, state: S.TrainState, nets, label: str) -> str:
     if path is None:
         raise FileNotFoundError(f"no checkpoint at {want}")
     # every file first, so that a checkpoint without one loads nothing
-    needed = [f for n, f in NET_FILES.items() if getattr(nets, n) is not None]
+    needed = list(_net_files(nets).values())
     needed += list(EMA_FILES.values()) if state.ema is not None else []
     missing = [f for f in needed + [OPTIMIZER_FILE]
                if not os.path.exists(os.path.join(path, f))]
     if missing:
         raise FileNotFoundError(f"{path} has no {', '.join(missing)}")
-    for name, fname in NET_FILES.items():
-        net = getattr(nets, name)
-        if net is not None:
-            net.load_state_dict(_load(os.path.join(path, fname), nets.device))
+    for name, fname in _net_files(nets).items():
+        getattr(nets, name).load_state_dict(
+            _load(os.path.join(path, fname), nets.device))
     if state.ema is not None:
         for name, fname in EMA_FILES.items():
             sd = _load(os.path.join(path, fname), nets.device)
@@ -137,6 +149,8 @@ def load_state(opt, state: S.TrainState, nets, label: str) -> str:
     state.opt_g.load_state_dict(saved["opt_g"])
     state.opt_d.load_state_dict(saved["opt_d"])
     state.step = int(saved["step"])
+    if "noise" in saved:
+        state.noise.set_state(saved["noise"].cpu())
     return path
 
 

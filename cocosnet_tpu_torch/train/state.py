@@ -13,6 +13,13 @@ pix2pix_trainer.py:105-125):
   step sets each optimizer's rate from the lr it is handed.
 - EMA (generator.py:259-287): shadow = beta * shadow + (1 - beta) * p over
   the G and Corr parameters, after each G update.
+- The domain classifier's parameters (--weight_domainC with --domain_rela)
+  sit beside D's in the D optimizer (state.py:101-102); no loss reaches
+  them, so Adam leaves them where they are.
+- The noise stream of --mask_noise / --noise_for_mask: an explicit
+  torch.Generator on the nets' device, seeded from --seed (the JAX
+  TrainState's noise_rng, state.py:38, :107-118; the port's bits are its
+  own).
 """
 
 from __future__ import annotations
@@ -59,12 +66,15 @@ def g_named_parameters(nets) -> Dict[str, torch.nn.Parameter]:
 
 
 def d_parameters(nets) -> List[torch.nn.Parameter]:
-    return list(nets.disc.parameters())
+    params = list(nets.disc.parameters())
+    if nets.domain_classifier is not None:
+        params += list(nets.domain_classifier.parameters())
+    return params
 
 
 class TrainState:
-    """The optimizers, the EMA shadows (None without --use_ema) and the
-    step counter of one training run of `nets`."""
+    """The optimizers, the EMA shadows (None without --use_ema), the step
+    counter and the noise generator of one training run of `nets`."""
 
     def __init__(self, opt: Options, nets):
         b1, b2 = (opt.beta1, opt.beta2) if opt.no_TTUR else (0.0, 0.9)
@@ -79,6 +89,7 @@ class TrainState:
             self.ema = {k: p.detach().clone()
                         for k, p in self.g_params.items()}
         self.step = 0
+        self.noise = torch.Generator(nets.device).manual_seed(opt.seed)
 
 
 def create_train_state(opt: Options, nets) -> TrainState:

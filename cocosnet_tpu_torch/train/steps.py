@@ -28,8 +28,19 @@ sums them over the `data` axis): the ranks of a model group hold the same
 gradients already, so the mean is over the data ranks, and every rank
 takes the same step. The reported losses are their means over the job,
 the global batch's losses. The batch-coupled loss terms read their global
-denominators in pix2pix (mesh.data_sum). No BatchNorm runs on these
-configurations, so no statistics need syncing.
+denominators in pix2pix (mesh.data_sum), and every BatchNorm the global
+batch's moments (nn/norms.py, mesh.data_sum_grad).
+
+A BatchNorm in train mode updates its running statistics on each forward:
+G's and Corr's in the G step, D's in the G step's discriminate and in the
+D step (fake and real as one batch). The noise of --mask_noise and
+--noise_for_mask is drawn once a step from the state's generator, before
+the forward (pix2pix.draw_noise; steps.py:100-107). --remat recomputes
+each SPADE block and the fake's VGG tower in the backward; --remat_full
+the whole correspondence + generator forward (steps.py:109-115), so the
+recompute adds the correlation's forward launches (not its backward's);
+either way each spectral norm and BatchNorm advances once a forward
+(nn/remat.py).
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import torch
 from cocosnet_tpu_torch import mesh as M
 from cocosnet_tpu_torch import pix2pix as P
 from cocosnet_tpu_torch.nn import layers as L
+from cocosnet_tpu_torch.nn import remat
 from cocosnet_tpu_torch.train import state as S
 
 
@@ -75,7 +87,13 @@ def make_train_step(nets: P.Pix2PixNets):
         try:
             with L.training():
                 # ---------------- generator step ------------------------
-                out = P.generate_fake(nets, data, train=True)
+                noise = P.draw_noise(opt, data, state.noise, train=True)
+                if opt.remat_full:
+                    out = remat.checkpoint(P.generate_fake, nets, data, True,
+                                           noise)
+                else:
+                    out = P.generate_fake(nets, data, train=True,
+                                          noise=noise)
                 with torch.no_grad():
                     out["ref_features"] = P.vgg_features(nets,
                                                          data["ref_image"])
@@ -140,14 +158,15 @@ def _global_losses(losses: Dict[str, torch.Tensor]
 def make_inference_step(nets: P.Pix2PixNets):
     """step(batch, rng=None) -> {"fake_image", "warp_out"} for one loader
     batch, under torch.inference_mode(). The nets hold their weights, so
-    the step takes no variables; rng would feed only --noise_for_mask,
-    which pix2pix.check_ported refuses."""
+    the step takes no variables; rng, a torch.Generator on the nets'
+    device, feeds the eval-time draw of --noise_for_mask (a fixed draw
+    without one)."""
     opt = nets.opt
 
     def inference_step(batch, rng=None) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
             data = P.preprocess_input(opt, batch, device=nets.device)
-            out = P.inference(nets, data)
+            out = P.inference(nets, data, generator=rng)
             return {"fake_image": out["fake_image"],
                     "warp_out": out.get("warp_out")}
 

@@ -43,6 +43,7 @@ from cocosnet_tpu_torch.tools.ab_dw import record_convs
 from test_torch_conv_train import _vmem_feasible
 from test_torch_model import _condition, _jnp, _structure
 from test_torch_threads import torch_threads  # noqa: F401
+from torch_fixtures import jit_quick
 
 SMALL = dict(crop_size=64, load_size=64, batchSize=2, ngf=8, isTrain=False)
 # the flags of each configuration beyond its dataset defaults
@@ -100,7 +101,21 @@ def batch_for(mode, semantic_nc, b, h, w, seed=0):
             "self_ref": np.ones((b,), np.float32)}
 
 
+_VARIABLES = {}
+
+
 def _variables(jnets, jopt, b, h, w):
+    """The conditioned variables of jopt's JAX nets at (b, h, w): a function
+    of its arguments, kept for the module's later callers (the slices
+    fixture's celebahq variables serve test_adaptor_kernel_4_keeps_the_
+    names too)."""
+    cache_key = (repr(jopt), b, h, w)
+    if cache_key not in _VARIABLES:
+        _VARIABLES[cache_key] = _draw_variables(jnets, jopt, b, h, w)
+    return _VARIABLES[cache_key]
+
+
+def _draw_variables(jnets, jopt, b, h, w):
     key = jax.random.PRNGKey(0)
     sem = jnp.zeros((b, h, w, jopt.semantic_nc))
     img = jnp.zeros((b, h, w, 3))
@@ -124,9 +139,9 @@ def slices():
         batch = batch_for(mode, jopt.semantic_nc, b, h, w)
         jnets = JP.Pix2PixNets(jopt)
         variables = _variables(jnets, jopt, b, h, w)
-        jout = jax.jit(lambda v, d: JP.inference(
-            jnets, v, JP.preprocess_input(jopt, d)))(_jnp(variables),
-                                                     _jnp(batch))
+        args = (_jnp(variables), _jnp(batch))
+        jout = jit_quick(lambda v, d: JP.inference(
+            jnets, v, JP.preprocess_input(jopt, d)), *args)(*args)
         tnets = TP.Pix2PixNets(topt, device="cpu")
         load_flax_variables(tnets.gen, variables["gen"])
         load_flax_variables(tnets.corr, variables["corr"])
@@ -352,17 +367,17 @@ def test_adaptor_kernel_4_keeps_the_names():
 @pytest.mark.parametrize("mode", MODES)
 def test_check_ported_takes_inference_refuses_training(mode):
     """Each configuration's inference flags and training flags are taken,
-    with a model mesh too; what stays unported (mask noise, the CAM
-    discriminator) is refused in training too."""
+    with a model mesh too, and with mask noise and the CAM discriminator
+    (once refused, now ported); an even match_kernel is refused."""
     kw = dict(SMALL, **CONFIGS[mode])
     TP.check_ported(TCFG.test_defaults(**kw))
     train = dict(kw, isTrain=True, ndf=8, **TRAIN_FLAGS[mode])
     TP.check_ported(TCFG.test_defaults(**train))
     TP.check_ported(TCFG.test_defaults(**dict(train, mesh_model=2)))
     for flag, value in (("mask_noise", True), ("D_cam", 1.0)):
-        with pytest.raises(NotImplementedError, match=flag):
-            TP.check_ported(TCFG.test_defaults(**dict(train,
-                                                      **{flag: value})))
+        TP.check_ported(TCFG.test_defaults(**dict(train, **{flag: value})))
+    with pytest.raises(NotImplementedError, match="match_kernel"):
+        TP.check_ported(TCFG.test_defaults(**dict(train, match_kernel=4)))
 
 
 @pytest.mark.parametrize("flags", [

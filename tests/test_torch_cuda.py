@@ -740,3 +740,22 @@ def test_serve_graph_replays_the_eager_forward(gen):
     assert float(eager[0].float().std()) > 10   # far from flat
     # a replay does not run the Python wrappers
     assert [fn.launches - k for fn, k in zip(counted, n)] == per_forward
+
+
+@pytest.mark.parametrize("flags", [
+    dict(remat=True, remat_policy="conv_small"),
+    dict(remat=True, remat_full=True)], ids=["conv_small", "block_and_full"])
+def test_remat_steps_on_the_card_equal_the_plain_steps(gen, monkeypatch,
+                                                       flags):
+    """tests/test_torch_remat.py's step (the default BatchNorm norm, mask
+    noise) on the card, where the autograd engine recomputes on a thread of
+    its own: remat's losses, u/v and running statistics at rel 1e-4 of
+    each one's scale, its gradients at 1e-4 of the largest of their
+    optimizer's, as the plain step's on the card. One step: the card's
+    backward sums some gradients with atomics (the gather and index
+    backwards), and D's Adam (eps 1e-8) turns a near-zero gradient's sign
+    into a whole step, so a second step compares two trajectories."""
+    from test_torch_remat import STATE, _run, check_same_steps
+    plain = _run(monkeypatch, device="cuda", steps=1)
+    check_same_steps(_run(monkeypatch, device="cuda", steps=1, **flags),
+                     plain, rel=1e-4, grad_rel=1e-4, only=STATE)

@@ -48,7 +48,7 @@ from cocosnet_tpu_torch.train import checkpoints as C
 from cocosnet_tpu_torch.train import state as TS
 from cocosnet_tpu_torch.train import steps as TST
 from test_torch_threads import torch_threads  # noqa: F401
-from torch_fixtures import condition
+from torch_fixtures import condition, jit_quick
 from test_torch_train import OPT, _batch, _jnp, _variables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,8 +78,8 @@ def test_d_step_matches_jax():
 
     jstate = JS.create_train_state(jopt, _jnp(variables),
                                    jax.random.PRNGKey(1))
-    jstate, jlosses = jax.jit(JST.make_d_step(jnets))(
-        jstate, _jnp(batch), jnp.asarray(lr), jnp.asarray(fake))
+    args = (jstate, _jnp(batch), jnp.asarray(lr), jnp.asarray(fake))
+    jstate, jlosses = jit_quick(JST.make_d_step(jnets), *args)(*args)
     jdisc = jax.tree.map(np.asarray, jstate.variables["disc"])
 
     tnets = TP.Pix2PixNets(topt, device="cpu")

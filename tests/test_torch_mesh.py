@@ -141,8 +141,9 @@ def JLD_dataset(opt):
 
 
 def test_check_ported_takes_the_mesh_flags():
-    """--mesh_model, --mesh_data and --distributed are taken; the model
-    group's correlation refuses spatial centering at run time, as JAX's."""
+    """--mesh_model, --mesh_data and --distributed are taken, with --D_cam
+    too; the model group's correlation refuses spatial centering at run
+    time, as JAX's; an even match_kernel is refused."""
     base = dict(dataset_mode="ade20k", label_nc=5, crop_size=64,
                 load_size=64, ngf=8, ndf=8, PONO=True, PONO_C=True,
                 use_attention=True, maskmix=True,
@@ -155,8 +156,9 @@ def test_check_ported_takes_the_mesh_flags():
     with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
         TTRAIN.check_loop_ported(TCFG.test_defaults(
             **dict(base, steps_per_dispatch=2)))
-    with pytest.raises(NotImplementedError, match="D_cam"):
-        TP.check_ported(TCFG.test_defaults(**dict(base, D_cam=1.0)))
+    TP.check_ported(TCFG.test_defaults(**dict(base, D_cam=1.0)))
+    with pytest.raises(NotImplementedError, match="match_kernel"):
+        TP.check_ported(TCFG.test_defaults(**dict(base, match_kernel=2)))
 
 
 def test_job_size_follows_the_mesh_flags():

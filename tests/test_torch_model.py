@@ -40,6 +40,7 @@ from cocosnet_tpu_torch.ops import conv3x3 as C
 from cocosnet_tpu_torch.ops import corr as K
 from cocosnet_tpu_torch.ops import shift9 as S
 from test_torch_threads import torch_threads  # noqa: F401
+from torch_fixtures import jit_quick
 
 FLAGSHIP_SMALL = dict(
     dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,
@@ -108,25 +109,45 @@ COUNTED = (C.conv3x3_fused, C.conv3x3_fused_stats, C.conv3x3_onehot,
            S.attend_shift9, K.attend_corr)
 
 
+# The JAX side (drawn variables, outputs) by configuration and batch
+# shape, use_pallas aside: the JAX package's use_pallas picks TPU kernels
+# only (correspondence.py:241, :314, behind default_backend() == "tpu"), so
+# on the CPU its two settings are one program on the same drawn weights,
+# and the library-route tests take the kernel-route fixtures' JAX side
+# instead of tracing and compiling it again.
+_JAX_SIDE = {}
+
+
+def _jax_side(jopt, batch, b, h, w):
+    """(variables, outputs) of the JAX package's inference for jopt."""
+    cache_key = (repr(jopt.replace(use_pallas=True)), b, h, w)
+    if cache_key not in _JAX_SIDE:
+        jnets = JP.Pix2PixNets(jopt)
+        key = jax.random.PRNGKey(0)
+        sem = jnp.zeros((b, h, w, jopt.semantic_nc))
+        img = jnp.zeros((b, h, w, 3))
+        cbn = jnp.zeros((b, h, w, 3 + jopt.semantic_nc))
+        variables = {
+            "gen": _condition(_structure(
+                lambda: jnets.gen.init(key, sem, cbn, train=False)), 0),
+            "corr": _condition(_structure(
+                lambda: jnets.corr.init(key, img, None, sem, sem,
+                                        train=False)), 1)}
+        args = (_jnp(variables), _jnp(batch))
+        jout = jit_quick(
+            lambda v, d: JP.inference(jnets, v, JP.preprocess_input(jopt, d)),
+            *args)(*args)
+        _JAX_SIDE[cache_key] = (variables, {k: np.asarray(v)
+                                            for k, v in jout.items()})
+    return _JAX_SIDE[cache_key]
+
+
 def _run_both(opt_kw, b, h, w):
     """(JAX outputs, port outputs, plain calls per entry) for one batch."""
     jopt = JCFG.test_defaults(**opt_kw)
     topt = TCFG.test_defaults(**opt_kw)
     batch = _batch(jopt.semantic_nc, b, h, w)
-    jnets = JP.Pix2PixNets(jopt)
-    key = jax.random.PRNGKey(0)
-    sem = jnp.zeros((b, h, w, jopt.semantic_nc))
-    img = jnp.zeros((b, h, w, 3))
-    cbn = jnp.zeros((b, h, w, 3 + jopt.semantic_nc))
-    variables = {
-        "gen": _condition(_structure(
-            lambda: jnets.gen.init(key, sem, cbn, train=False)), 0),
-        "corr": _condition(_structure(
-            lambda: jnets.corr.init(key, img, None, sem, sem, train=False)),
-            1)}
-    jout = jax.jit(lambda v, d: JP.inference(
-        jnets, v, JP.preprocess_input(jopt, d)))(_jnp(variables),
-                                                 _jnp(batch))
+    variables, jout = _jax_side(jopt, batch, b, h, w)
     tnets = TP.Pix2PixNets(topt, device="cpu")
     load_flax_variables(tnets.gen, variables["gen"])
     load_flax_variables(tnets.corr, variables["corr"])

@@ -128,28 +128,32 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 def test_unported_options_raise():
     """--warp_patch (the deepfashion configuration) runs in inference and
-    in training; an option with no ported branch is refused in both."""
+    in training, with --show_corr too (once refused); a mask loss type
+    neither package has is refused in both."""
     opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12, ngf=8,
                              PONO=True, isTrain=False, warp_patch=True)
     TP.check_ported(opt)
     TP.Pix2PixNets(opt.replace(isTrain=True), device="cpu")
     for train in (False, True):
-        with pytest.raises(NotImplementedError, match="show_corr"):
-            TP.Pix2PixNets(opt.replace(show_corr=True, isTrain=train),
-                           device="cpu")
+        TP.Pix2PixNets(opt.replace(show_corr=True, isTrain=train),
+                       device="cpu")
+        with pytest.raises(NotImplementedError, match="warp_mask_losstype"):
+            TP.Pix2PixNets(opt.replace(warp_mask_losstype="exact",
+                                       isTrain=train), device="cpu")
 
 
 @pytest.mark.parametrize("match_kernel,ported", [(1, True), (3, True),
-                                                 (5, False)])
+                                                 (5, True)])
 def test_match_kernel_values(match_kernel, ported):
+    """Odd kernels run (5 on the streaming unfold); the even one above each
+    has no centre and is refused."""
     opt = TCFG.test_defaults(dataset_mode="ade20k", label_nc=12, ngf=8,
                              PONO=True, isTrain=False,
                              match_kernel=match_kernel)
-    if ported:
-        TP.check_ported(opt)
-    else:
-        with pytest.raises(NotImplementedError, match="match_kernel"):
-            TP.check_ported(opt)
+    assert ported
+    TP.check_ported(opt)
+    with pytest.raises(NotImplementedError, match="match_kernel"):
+        TP.check_ported(opt.replace(match_kernel=match_kernel + 1))
 
 
 def test_kernel_sources_build_from_the_package():

@@ -16,7 +16,8 @@ update of both sides, and tau = 0.01 makes the warp softmax argmax-like.
 Weights are drawn as tests/test_torch_model.py draws them (kernels at
 1/sqrt(fan_in), biases at 0.1) so every layer carries signal; the spectral
 u/v are random unit vectors, so the power iterations move them. The JAX
-step is jitted once per module (about half a minute on the CPU)."""
+step is compiled once per module (torch_fixtures.jit_quick; about twenty
+seconds on the CPU)."""
 
 import numpy as np
 import pytest
@@ -53,6 +54,7 @@ from cocosnet_tpu_torch.ops import shift9 as S
 from cocosnet_tpu_torch.train import state as TS
 from cocosnet_tpu_torch.train import steps as TST
 from test_torch_threads import torch_threads  # noqa: F401
+from torch_fixtures import jit_quick
 
 OPT = dict(dataset_mode="ade20k", label_nc=5, contain_dontcare_label=True,
            crop_size=64, load_size=64, batchSize=2, ngf=8, ndf=8,
@@ -145,7 +147,8 @@ def two_steps():
 
     jstate = JS.create_train_state(jopt, _jnp(variables),
                                    jax.random.PRNGKey(1))
-    jstep = jax.jit(JST.make_train_step(jnets))
+    jstep = jit_quick(JST.make_train_step(jnets), jstate, _jnp(batch),
+                      jnp.asarray(lr))
     jlosses, jstates = [], []
     for _ in range(2):
         jstate, metrics, _ = jstep(jstate, _jnp(batch), jnp.asarray(lr))
@@ -510,6 +513,20 @@ def test_conv_kernel_entries_refuse_grad():
                                   dict(remat=True),
                                   dict(weight_domainC=1.0, domain_rela=True)])
 def test_unported_training_options_raise(flag):
-    opt = TCFG.test_defaults(**dict(OPT, **flag))
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
-        TP.Pix2PixNets(opt, device="cpu")
+    """Each training option that the port once refused now builds its
+    branch and takes a step with finite losses (tests/test_torch_variants.py
+    holds them against JAX, tests/test_torch_remat.py the remat ones
+    against the plain step); an unknown --remat_policy is refused."""
+    opt = TCFG.test_defaults(**dict(OPT, batchSize=1, **flag))
+    nets = TP.Pix2PixNets(opt, device="cpu")
+    if "D_cam" in flag:
+        assert nets.disc.discriminator_0.gap_fc is not None
+    if "weight_domainC" in flag:
+        assert nets.domain_classifier is not None
+    state = TS.create_train_state(opt, nets)
+    batch = {k: v[:1] for k, v in _batch().items()}
+    losses, _ = TST.make_train_step(nets)(state, batch,
+                                          TS.lrs_for_epoch(opt, 1))
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    with pytest.raises(NotImplementedError, match="remat_policy"):
+        TP.check_ported(opt.replace(remat_policy="all"))

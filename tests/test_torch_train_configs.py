@@ -25,8 +25,9 @@ bound; the shift9 core's calls a step, forward and backward, one for the
 row warp and one for each column warp (their plain versions on the CPU).
 JAX runs its CPU route (attend_unfold), the port its plain shift9 versions
 with use_pallas on. Each configuration's JAX step is compiled once for
-the module, at XLA's lowest backend optimization level (about half a
-minute each on one CPU worker)."""
+the module, at XLA's lowest backend optimization level without LLVM's
+expensive passes (torch_fixtures.XLA_QUICK; about half a minute each on
+one CPU worker)."""
 
 import importlib.util
 import os
@@ -54,6 +55,7 @@ from cocosnet_tpu_torch.train import steps as TST
 from test_torch_configs import CONFIGS, TRAIN_FLAGS, batch_for
 from test_torch_threads import torch_threads  # noqa: F401
 from test_torch_train import _batch, _jnp, _spectral, _variables
+from torch_fixtures import XLA_QUICK
 
 SMALL = dict(crop_size=64, load_size=64, batchSize=2, ngf=8, ndf=8,
              use_attention=True, PONO=True, PONO_C=True,
@@ -70,10 +72,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORR_KEYS = ("warp_out", "warp_mask", "warp_cycle", "warp_i2r",
              "warp_i2r2i")
 B, H = 2, 64
-# the JAX side's compiles at LLVM's lowest level: a quarter less compile
-# time on the CPU, the results within 1e-6 of the default level's (the
-# suite's time is the budget these modules spend)
-XLA_QUICK = {"xla_backend_optimization_level": 0}
 
 
 def batch_of(opt, seed=0):

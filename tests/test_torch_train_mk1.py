@@ -45,6 +45,7 @@ from cocosnet_tpu_torch.train import steps as TST
 from test_torch_train import (LOSS_KEYS, OPT, _batch, _jnp, _spectral,
                               _variables)
 from test_torch_threads import torch_threads  # noqa: F401
+from torch_fixtures import jit_quick
 from test_torch_train_configs import (CORR_KEYS, check_corr, check_losses,
                                       check_spectral, run_pair)
 
@@ -65,7 +66,8 @@ def runs():
     lr = JS.lrs_for_epoch(jopt, 1)
     jstate = JS.create_train_state(jopt, _jnp(variables),
                                    jax.random.PRNGKey(1))
-    jstep = jax.jit(JST.make_train_step(jnets))
+    jstep = jit_quick(JST.make_train_step(jnets), jstate, _jnp(batch),
+                      jnp.asarray(lr))
     jlosses, jstates = [], []
     for _ in range(2):
         jstate, metrics, _ = jstep(jstate, _jnp(batch), jnp.asarray(lr))
