@@ -64,6 +64,17 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   conv3x3.cu table, batch-8 training without remat, with --remat and with
   --remat --remat_full, batch 16 with --remat (s/step, peak memory); (c)
   the explicit-matrix correspondence against the CPU;
+- the training trajectory (phase 13) at tools/parity_trajectory.py's
+  setting (match_kernel 1, 64 px, batch 2, ngf 64): four f32 steps of the
+  kernel route on the card against the CPU, held to
+  tests/test_trajectory_parity.py's schedule, then 50 steps each of the
+  f32 library, f32 kernel and bf16 kernel routes, finite, their spread
+  printed beside PARITY_TRAJECTORY.json's;
+- the remaining tool twins (phase 14): profile_inference (mk3 B6) and
+  profile_train (mk3 B8), their stage tables with each stage's device time
+  by kernel family and its hand-written launches held to phases 4 and 5;
+  eval_metrics' VGG19 features on the card against the CPU, SWD and FID;
+  mask_to_edge against the celebahqedge loader's label stack;
 checking on each path that every kernel of that path was launched as often
 as the routing predicts.
 
@@ -88,28 +99,21 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 from PIL import Image as PILImage
 
-# published peaks of one H100 SXM (dense): bytes/s of HBM3, f32 FLOP/s
-# outside the tensor cores, bf16 and TF32 FLOP/s on the tensor cores
-HBM_BYTES_S = 3.35e12
-F32_FLOP_S = 67e12
-BF16_FLOP_S = 989e12
-TF32_FLOP_S = 495e12
-# tensor-core passes per product of a split-precision product: 3xTF32 (what
-# the correlation kernels issue, csrc/tc_split.cuh) or bf16x3 (the split of
-# the TPU kernels, pallas_shift9._dot3 and pallas_corr._dot, and the
-# cheapest that holds the dense correlation's tolerances,
-# tests/test_torch_corr_split.py)
-SPLIT_PASSES = 3
-TIMED_RUNS = 25
-
+from cocosnet_tpu_torch.nn.layers import condition_weights
+from cocosnet_tpu_torch.utils.profiling import (
+    BF16_FLOP_S, F32_FLOP_S, SPLIT_PASSES, bound_ms, card_line,
+    conv3x3_flops, corr_bwd_flops, corr_bwd_issued, corr_fwd_flops,
+    corr_fwd_issued, counted_entries, device_ms, onehot_ops, profile_call,
+    shift9_bwd_flops, shift9_bwd_issued, shift9_fwd_flops, shift9_fwd_issued,
+    tc_bound, time_ms)
 
 def _fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -122,62 +126,12 @@ def _check(ok: bool, msg: str) -> None:
         sys.exit(1)
 
 
-def time_ms(fn, runs: int = TIMED_RUNS) -> float:
-    """Median over `runs` CUDA-event-timed calls, after two warm-ups."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def device_ms(fn, keys, runs: int = 10) -> dict:
-    """Device time per call of `fn`'s kernels whose names hold each of
-    `keys`, from torch.profiler over `runs` calls after a warm-up: the
-    launches' own time, without the host's time between them."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    us = dict.fromkeys(keys, 0.0)
-    seen = False
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            seen = True
-            for k in keys:
-                if k in e.name:
-                    us[k] += e.time_range.elapsed_us()
-    # None where the profiler saw no device kernel at all (on the H100,
-    # sessions opened here after phase 8 have seen none)
-    return {k: v / runs / 1e3 if seen else None for k, v in us.items()}
-
-
 def _ms(t) -> str:
     return "not measured" if t is None else f"{t:.3f}"
 
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def bound_ms(nbytes: int, ops: float, rate: float):
-    """(least time in ms, what bounds it) for moving nbytes once and doing
-    `ops` operations at `rate` per second."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / rate
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def _maxerr(a, b) -> float:
@@ -234,7 +188,7 @@ def check_conv(C, g, *, b, h, w, ci, co, reflect, stats, dtype, label):
         lib = lambda: torch.nn.functional.conv2d(  # noqa: E731
             xc, wc, bc, padding=1)
     library_ms = time_ms(lib)
-    flops = 2.0 * b * h * w * 9 * ci * co
+    flops = conv3x3_flops(b, h, w, ci, co)
     nb = _nbytes(x, k, bias) + b * h * w * co * x.element_size()
     bms, by = bound_ms(nb, flops, BF16_FLOP_S if dtype == torch.bfloat16
                        else F32_FLOP_S)
@@ -292,7 +246,7 @@ def check_onehot(C, g, *, dtype):
         dense, wc, bias.to(dtype), padding=1))
     out_bytes = b * h * w * co * torch.finfo(dtype).bits // 8
     nb = _nbytes(lab, kd, bias) + out_bytes
-    bms, by = bound_ms(nb, 9.0 * b * h * w * co, F32_FLOP_S)
+    bms, by = bound_ms(nb, onehot_ops(b, h, w, co), F32_FLOP_S)
     print(f"     onehot {dtype}: kernel {ms:.3f} ms (the gather alone "
           f"{gather_ms:.3f}; device time of the gather "
           f"{_ms(dev_ms['onehot::onehot_kernel'])} and of the moments "
@@ -336,10 +290,10 @@ def check_shift9(S, g, *, pono_c, b=6, d=154):
     plain_ms = time_ms(lambda: S.shift9_core_plain(f3, g3, v, qv, kv, w),
                        runs=5)
     wrapper_ms = time_ms(lambda: S.attend_shift9(f, gg, v, 0.01, pono_c))
-    flops = 2.0 * b * n * n * (3 * c + d)
+    flops = shift9_fwd_flops(b, n, n, c, d)
     nb = _nbytes(f3, g3, v, qv, kv) + b * n * (d + 1) * 4
     bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
-    issued = _shift9_fwd_issued(b, n, 3 * c, d)
+    issued = shift9_fwd_issued(b, n, 3 * c, d)
     del f3, g3, qv, kv
     torch.cuda.empty_cache()
     lib = shift9_yardstick(f, gg, v, pono_c, o)
@@ -472,7 +426,7 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed, swap=False):
     if not timed:
         return None
     fwd_ms = time_ms(lambda: S.shift9_core_kernel(f3, g3, v, qv, kv, w))
-    rate = SPLIT_PASSES * _shift9_fwd_issued(b, n, 3 * c, d) / fwd_ms / 1e9
+    rate = SPLIT_PASSES * shift9_fwd_issued(b, n, 3 * c, d) / fwd_ms / 1e9
     print(f"     {label} forward: kernel {fwd_ms:.3f} ms "
           f"in {S.shift9_fwd_parts(b, n, d, f3.device)} key parts, "
           f"{rate:.1f} TFLOP/s of TF32", flush=True)
@@ -485,7 +439,7 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed, swap=False):
         fwd_lib = shift9_yardstick(f, gg, v, pono_c, o)
         fwd_bms, fwd_by, _, _ = tc_bound(
             _nbytes(f3, g3, v, qv, kv) + b * n * (d + 1) * 4,
-            2.0 * b * n * n * (3 * c + d))
+            shift9_fwd_flops(b, n, n, c, d))
         print(f"     {label} forward: plain {fwd_plain_ms:.3f} ms, "
               f"{fwd_lib['library']} {fwd_lib['library_ms']:.3f} ms, bound "
               f"{fwd_bms:.3f} ms ({fwd_by})", flush=True)
@@ -505,8 +459,8 @@ def check_shift9_bwd(S, g, *, b, h, w, c, d, pono_c, timed, swap=False):
     # the function needs S3 = F3 G3^T and dP = gO V^T once each, then dF3 =
     # dS3 G3, dG3 = dS3^T F3 and dV = P^T gO: 2 B N^2 (3 3C + 2 D), each as 3
     # split passes for the bound; the tiles' padded count is printed beside
-    flops = 2.0 * b * n * n * (3 * c3 + 2 * d)
-    issued = _shift9_bwd_issued(b, n, c3, d)
+    flops = shift9_bwd_flops(b, n, n, c, d)
+    issued = shift9_bwd_issued(b, n, c3, d)
     nb = _nbytes(f3, g3, v, qv, kv, lse, go, dd, *got)
     bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     {label} backward: kernel {ms:.3f} ms, plain "
@@ -586,8 +540,8 @@ def check_corr(Kc, g, *, b, n, timed):
     library_ms = time_ms(lib, runs=5)
     backend = sdpa_backend(lib)
     torch.cuda.empty_cache()
-    flops = 2.0 * b * n * n * (256 + 154)
-    issued = _corr_fwd_issued(b, n, n, 256, 154)
+    flops = corr_fwd_flops(b, n, n, 256, 154)
+    issued = corr_fwd_issued(b, n, n, 256, 154)
     nb = _nbytes(q, k, v, o, lse)
     bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     corr forward B{b} N=M={n}: kernel {ms:.3f} ms, plain "
@@ -601,66 +555,6 @@ def check_corr(Kc, g, *, b, n, timed):
                 bound_by=by, library_ms=library_ms,
                 library=f"F.scaled_dot_product_attention f32, {backend}",
                 tf32x3_bound_ms=tf32_ms, fma_bound_ms=fma_ms)
-
-
-def tc_bound(nb: int, flops: float):
-    """(least time in ms, what bounds it, the 3xTF32 bound in ms, the
-    f32-FMA bound in ms) of a correlation kernel's `flops`: the least time
-    is that of the split the TPU kernels multiply in, bf16x3 (SPLIT_PASSES
-    tensor-core passes at the bf16 rate); beside it the split the CUDA
-    kernels issue, 3xTF32 (as many passes at the TF32 rate), and the same
-    flops at the f32 FMA rate, the bound of a design without tensor
-    cores."""
-    bms, by = bound_ms(nb, SPLIT_PASSES * flops, BF16_FLOP_S)
-    return (bms, by, bound_ms(nb, SPLIT_PASSES * flops, TF32_FLOP_S)[0],
-            bound_ms(nb, flops, F32_FLOP_S)[0])
-
-
-def _up(x, t):
-    return -(-x // t) * t
-
-
-def _shift9_bwd_issued(b, n, c3, d):
-    """The flops csrc/shift9_bwd.cu issues per pass: S3 and dP on the
-    128-square regions of the 124-square tiles that cover N padded to 128,
-    over 3C and D padded to 32-wide chunks, then dF3 and dG3 over 3C padded
-    to 128-column tiles and dV over D padded to 96-column tiles (32 where D
-    <= 32), all over N padded to 128."""
-    npad = _up(n, 128)
-    region = _up(npad, 124) // 124 * 128
-    return (2.0 * b * region * region * (_up(c3, 32) + _up(d, 32))
-            + 2.0 * b * npad * npad * (2 * _up(c3, 128)
-                                       + _up(d, 96 if d > 32 else 32)))
-
-
-def _shift9_fwd_issued(b, n, c3, d):
-    """The flops csrc/shift9_fwd.cu issues per pass: S3 over 3C padded to
-    32-wide chunks and P V over D padded to its chunks (8, 32 or 160
-    columns, S3 again for each chunk), on 128-row query regions of
-    126-query tiles and 64-column key regions of 62-key ones."""
-    dch = 8 if d <= 8 else 32 if d <= 32 else 160
-    rows, cols = -(-n // 126) * 128, -(-n // 62) * 64
-    return 2.0 * b * rows * cols * -(-d // dch) * (_up(c3, 32) + dch)
-
-
-def _corr_fwd_issued(b, n, m, c, d):
-    """The flops csrc/corr_fwd.cu issues per pass: S over C padded to
-    32-wide chunks and P v over D padded to its chunks (8, 32 or 160
-    columns), over N padded to 128 and M to 64."""
-    dch = 8 if d <= 8 else 32 if d <= 32 else 160
-    return 2.0 * b * _up(n, 128) * _up(m, 64) * (_up(c, 32) + _up(d, dch))
-
-
-def _issued_flops(b, n, m, c, d, dv_cols):
-    """The flops the correlation backward kernels issue per pass: the
-    scores over C and over D padded to 32-wide chunks, dq and dk over C
-    padded to 128-column tiles, dv over D padded to its dv_cols-column
-    tiles, all over N and M padded to 128-row tiles."""
-    def up(x, t):
-        return -(-x // t) * t
-    npad, mpad = up(n, 128), up(m, 128)
-    return 2.0 * b * npad * mpad * (up(c, 32) + up(d, 32) + 2 * up(c, 128)
-                                    + up(d, dv_cols))
 
 
 def check_corr_bwd(Kc, g, *, b, n, timed):
@@ -704,8 +598,8 @@ def check_corr_bwd(Kc, g, *, b, n, timed):
     # the function needs S = q k^T and dP = gO v^T once each, then dq, dk
     # and dv: 2 B N M (3 C + 2 D), each as 3 split passes for the bound; the
     # tiles' padded count is printed beside it
-    flops = 2.0 * b * n * n * (3 * 256 + 2 * 154)
-    issued = _issued_flops(b, n, n, 256, 154, 96)
+    flops = corr_bwd_flops(b, n, n, 256, 154)
+    issued = corr_bwd_issued(b, n, n, 256, 154, 96)
     nb = _nbytes(*args[:3], *args[4:], *got)
     bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     corr backward B{b} N=M={n}: kernel {ms:.3f} ms, plain "
@@ -760,7 +654,7 @@ def check_dw(C, g, *, b, h, w, ci, co, reflect, dtype, timed):
     gc = gy.permute(0, 3, 1, 2)
     library_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
         xp, (co, ci, 3, 3), gc, padding=0 if reflect else 1))
-    flops = 2.0 * b * h * w * 9 * ci * co
+    flops = conv3x3_flops(b, h, w, ci, co)
     nb = _nbytes(x, gy, *got)
     bms, by = bound_ms(nb, flops, BF16_FLOP_S if dtype == torch.bfloat16
                        else F32_FLOP_S)
@@ -801,7 +695,7 @@ def check_fused_bwd(C, g, *, b, h, w, ci, co, dtype):
     gc = gy.permute(0, 3, 1, 2)
     library_ms = time_ms(lambda: torch.nn.grad.conv2d_input(
         (b, ci, h, w), wc, gc, padding=1))
-    flops = 2.0 * b * h * w * 9 * ci * co
+    flops = conv3x3_flops(b, h, w, ci, co)
     nb = _nbytes(gy, k) + b * h * w * ci * x.element_size()
     bms, by = bound_ms(nb, flops, BF16_FLOP_S if dtype == torch.bfloat16
                        else F32_FLOP_S)
@@ -840,8 +734,8 @@ def check_bigc(Kc, TC, g, *, b, n, m, timed):
     chunked_ms = time_ms(lambda: TC.attend_chunked(q, k, v, CORR_TAU),
                          runs=5)
     torch.cuda.empty_cache()
-    flops = 2.0 * b * n * m * (BIGC_C + BIGC_D)
-    issued = _corr_fwd_issued(b, n, m, BIGC_C, BIGC_D)
+    flops = corr_fwd_flops(b, n, m, BIGC_C, BIGC_D)
+    issued = corr_fwd_issued(b, n, m, BIGC_C, BIGC_D)
     nb = _nbytes(q, k, v, o, lse)
     bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
@@ -900,8 +794,8 @@ def check_bigc_bwd(Kc, KB, TC, g, *, b, n, m, timed):
         TC.attend_chunked(qr, kr, vr, CORR_TAU), (qr, kr, vr), go), runs=3)
     torch.cuda.empty_cache()
     c, d = BIGC_C, BIGC_D
-    flops = 2.0 * b * n * m * (3 * c + 2 * d)
-    issued = _issued_flops(b, n, m, c, d, 32)
+    flops = corr_bwd_flops(b, n, m, c, d)
+    issued = corr_bwd_issued(b, n, m, c, d, 32)
     nb = _nbytes(*args[:3], *args[4:], *got)
     bms, by, tf32_ms, fma_ms = tc_bound(nb, flops)
     print(f"     {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
@@ -921,28 +815,9 @@ def check_bigc_bwd(Kc, KB, TC, g, *, b, n, m, timed):
 
 # ------------------------------------------------------------------ phase 3
 
-def _counted():
-    """The kernel entries of the paths, by name."""
-    from cocosnet_tpu_torch.ops import conv3x3 as C
-    from cocosnet_tpu_torch.ops import corr as Kc
-    from cocosnet_tpu_torch.ops import corr_bigc as KB
-    from cocosnet_tpu_torch.ops import shift9 as S
-    return {"attend_shift9": S.attend_shift9,
-            "attend_shift9_backward": S.attend_shift9_backward,
-            "attend_corr": Kc.attend_corr,
-            "attend_corr_backward": Kc.attend_corr_backward,
-            "attend_corr_bigc": KB.attend_corr_bigc,
-            "attend_corr_bigc_backward": KB.attend_corr_bigc_backward,
-            "conv3x3_fused": C.conv3x3_fused,
-            "conv3x3_fused_backward": C.conv3x3_fused_backward,
-            "conv3x3_fused_stats": C.conv3x3_fused_stats,
-            "conv3x3_onehot": C.conv3x3_onehot,
-            "conv3x3_dw": C.conv3x3_dw}
-
-
 def _launches(**kw) -> dict:
     """Launches per forward or step: the named counts, every other 0."""
-    return {k: kw.get(k, 0) for k in _counted()}
+    return {k: kw.get(k, 0) for k in counted_entries()}
 
 
 CONVS = dict(conv3x3_fused=80, conv3x3_fused_stats=20, conv3x3_onehot=1)
@@ -1029,37 +904,6 @@ def _zero_counts(counted) -> None:
         fn.launches = 0
 
 
-def condition_weights(module, g, dev) -> None:
-    """Random weights at unit signal scale from generator g: conv weights
-    at 1/sqrt(fan_in), biases at 0.1, PReLU 0.2, attention gate 0.5, and
-    spectral u/v set to the leading singular vectors by power iteration,
-    so sigma is the spectral norm (the init leaves u/v random, sigma near
-    0 and the activations far from unit scale)."""
-    from cocosnet_tpu_torch.nn.blocks import Attention
-    from cocosnet_tpu_torch.nn.layers import Conv2d, PReLU
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, Conv2d):
-                w = m.weight if m.weight_norm is None else m.weight_orig
-                w.copy_((torch.randn(w.shape, generator=g)
-                         * w[0].numel() ** -0.5).to(dev))
-                if m.bias is not None:
-                    m.bias.copy_((torch.randn(m.bias.shape, generator=g)
-                                  * 0.1).to(dev))
-                if m.weight_norm == "spectral":
-                    wm = w.reshape(w.shape[0], -1)
-                    u = m.weight_u
-                    for _ in range(50):
-                        v = torch.nn.functional.normalize(wm.t() @ u, dim=0)
-                        u = torch.nn.functional.normalize(wm @ v, dim=0)
-                    m.weight_u.copy_(u)
-                    m.weight_v.copy_(v)
-            elif isinstance(m, PReLU):
-                m.weight.fill_(0.2)
-            elif isinstance(m, Attention):
-                m.gamma.fill_(0.5)
-
-
 def make_batch(g, b, h, w, nc):
     return {
         "label": torch.randint(0, nc, (b, h, w, 1), generator=g).float(),
@@ -1095,7 +939,7 @@ def reference_check(P, cfg, g, match_kernel, flags=None, tag=""):
     gpu.corr.load_state_dict(cpu.corr.state_dict())
     gpu.gen.load_state_dict(cpu.gen.state_dict())
     want = P.inference(cpu, P.preprocess_input(opt, batch, device="cpu"))
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     res = []
     records = AB.record_convs(lambda: res.append(P.inference(
@@ -1398,7 +1242,7 @@ def train_reference_check(P, L, TS, ST, ref, tag, corr_launches, route):
     p0 = ref["p0"]
     gstate = TS.create_train_state(opt, gpu)
     gstep = ST.make_train_step(gpu)
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     res = []
     records = AB.record_convs(lambda: res.append(gstep(gstate, batch, lr)))
@@ -1460,99 +1304,6 @@ def train_reference_check(P, L, TS, ST, ref, tag, corr_launches, route):
 
     got, _ = gstep(gstate, batch, lr)
     _check_losses(got, ref["want2"], 2e-2, f"{tag} second small train step")
-
-
-KERNEL_FAMILIES = (          # (family, substrings of the kernel name)
-    ("conv3x3.cu", ("conv3x3_bf16_kernel", "conv3x3_f32_kernel")),
-    ("conv operand copies", ("pad_channels", "k_major_weights")),
-    ("conv3x3_onehot.cu", ("onehot::",)),
-    ("shift9_fwd.cu", ("shift9_fwd::",)),
-    ("shift9_bwd.cu", ("shift9_bwd_scores_kernel", "shift9_bwd_reduce_kernel",
-                       "shift9_bwd::src")),
-    ("corr_fwd.cu", ("corr_fwd_kernel",)),
-    ("corr_bwd.cu", ("corr_bwd_scores_kernel", "corr_bwd::src")),
-    ("conv3x3_dw.cu", ("conv3x3_dw_bf16_kernel", "conv3x3_dw_f32_kernel",
-                       "reduce_splits")),
-    ("library conv (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
-                              "implicit")),
-    ("library matmul", ("gemm", "cutlass", "cublas")),
-    ("optimizer (Adam, EMA)", ("multi_tensor", "adam")),
-    ("softmax / reductions", ("softmax", "reduce", "norm")),
-)
-
-
-# (source, ((substring of the kernel name, part), ...)): the launches of
-# the kernels that make more than one: the shift9 forward's two and the
-# one-hot conv's two, the shift9 backward's five and the correlation
-# backward's four (the GEMMs of tc_split.cuh, named after their source;
-# dV's and dv's tiles: 96 columns where D > 32, as at the flagship, else
-# 32, as in bench_corr)
-KERNEL_PARTS = (
-    ("shift9_fwd.cu", (("shift9_fwd::shift9_fwd_kernel",
-                        "flash (S3, softmax, P V)"),
-                       ("shift9_fwd::shift9_fwd_combine_kernel",
-                        "combine of the key parts"))),
-    ("conv3x3_onehot.cu", (("onehot::onehot_kernel", "gather"),
-                           ("onehot::moments_kernel", "moments"))),
-    ("shift9_bwd.cu", (("shift9_bwd_scores_kernel", "scores (P, dS3)"),
-                       ("shift9_bwd_reduce_kernel", "side gradients"),
-                       ("<shift9_bwd::Src, true, 4>", "dF3 = dS3 G3"),
-                       ("<shift9_bwd::Src, false, 4>", "dG3 = dS3^T F3"),
-                       ("<shift9_bwd::Src, false, 3>", "dV = P^T gO"),
-                       ("<shift9_bwd::Src, false, 1>",
-                        "dV = P^T gO (32-column tiles)"))),
-    ("corr_bwd.cu", (("corr_bwd_scores_kernel", "scores (P, dS)"),
-                     ("<corr_bwd::Src, true, 4>", "dq = dS k"),
-                     ("<corr_bwd::Src, false, 4>", "dk = dS^T q"),
-                     ("<corr_bwd::Src, false, 3>", "dv = P^T gO"),
-                     ("<corr_bwd::Src, false, 1>",
-                      "dv = P^T gO (32-column tiles)"))))
-
-
-def profile_call(fn) -> None:
-    """Device time of one call of `fn` by kernel family, from
-    torch.profiler's CUDA kernel events, and the device's idle share of the
-    host-timed call."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        print("profile: not measured (the profiler saw no device kernels)")
-        return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:                    # union of the kernel intervals
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-    fam = {}
-    for e in kernels:
-        name = e.name.lower()
-        key = next((f for f, subs in KERNEL_FAMILIES
-                    if any(s in name for s in subs)), "elementwise / other")
-        n, us = fam.get(key, (0, 0.0))
-        fam[key] = (n + 1, us + e.time_range.elapsed_us())
-    total = sum(us for _, us in fam.values())
-    print(f"profile: {len(kernels)} kernels, device busy {busy / 1e3:.2f} "
-          f"ms of {wall_us / 1e3:.2f} ms host time (idle share "
-          f"{1 - busy / wall_us:.3f}); kernel time by family:")
-    for key, (n, us) in sorted(fam.items(), key=lambda kv: -kv[1][1]):
-        print(f"  {key:24s} {n:5d} launches {us / 1e3:9.3f} ms "
-              f"{us / total:6.1%}")
-    # the kernels' parts, by kernel name and template arguments
-    for src, parts in KERNEL_PARTS:
-        for key, what in parts:
-            us = sum(e.time_range.elapsed_us() for e in kernels
-                     if key in e.name)
-            if us:
-                print(f"    {src} {what}: {us / 1e3:.3f} ms")
 
 
 def inference_opt(cfg, match_kernel):
@@ -1647,7 +1398,7 @@ def forward_conv_table(P, cfg, L, C, g, opt=None, batch=None,
         else:
             lib = lambda: F.conv2d(xc, wc, bc, padding=1)  # noqa: E731
         lib_ms = time_ms(lib, runs=10)
-        flops = 2.0 * b * h * w * 9 * ci * co
+        flops = conv3x3_flops(b, h, w, ci, co)
         bms, bound_by = bound_ms(_nbytes(x, k, bias) + b * h * w * co * 2,
                                  flops, BF16_FLOP_S)
         tot.update(kernel=n * ms, cudnn=n * lib_ms, bound=n * bms,
@@ -1672,11 +1423,13 @@ def forward_conv_table(P, cfg, L, C, g, opt=None, batch=None,
     return table
 
 
-def flagship_inference(P, cfg, L, g, match_kernel, timed_runs) -> dict:
+def flagship_inference(P, cfg, L, g, match_kernel, timed_runs,
+                       record=None) -> dict:
     """Phases 4 and 4b: flagship-width inference (batch 6 and batch 1, bf16
     policy, seeded random weights) at `match_kernel`: the launches of one
     forward, the outputs' shapes and ranges, images/s, batch-1 latency,
-    peak memory (the phase's own) and profiles. Returns the launches."""
+    peak memory (the phase's own) and profiles (the batch-6 forward's
+    device-busy ms into `record`). Returns the launches."""
     L.set_compute_dtype(torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
     opt = inference_opt(cfg, match_kernel)
@@ -1684,7 +1437,7 @@ def flagship_inference(P, cfg, L, g, match_kernel, timed_runs) -> dict:
     condition_weights(nets.corr, g, "cuda")
     condition_weights(nets.gen, g, "cuda")
     batch = make_batch(g, 6, 256, 256, opt.semantic_nc)
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     out = P.inference(nets, P.preprocess_input(opt, batch))
     torch.cuda.synchronize()
@@ -1727,7 +1480,9 @@ def flagship_inference(P, cfg, L, g, match_kernel, timed_runs) -> dict:
           f"{lat[len(lat) // 2]:.2f} ms end to end with preprocessing "
           f"({fwd1_ms:.2f} ms forward); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    profile_call(lambda: P.inference(nets, data))
+    rec = profile_call(lambda: P.inference(nets, data))
+    if record is not None and rec is not None:
+        record["busy_ms"] = rec["busy_ms"]
     profile_call(lambda: P.inference(nets, data1))
     del nets, out, data, data1
     torch.cuda.empty_cache()
@@ -1739,19 +1494,21 @@ FLAGSHIP_LOSS_KEYS = {"no_vgg_feat", "GAN", "GAN_Feat", "fm", "perc",
                       "contextual", "mask", "D_Fake", "D_real"}
 
 
-def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps) -> dict:
+def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps,
+                      out=None) -> dict:
     """Phases 5, 5b, 5c and 5d: flagship-width training at batch 8 under the
     bf16 policy through make_train_step, at `match_kernel` on `route` (the
     correlation's at match_kernel 1; "kernels", "dw" or "fused" at 3):
-    train_path against TRAIN_LAUNCHES. Returns the launches of the counted
-    step."""
+    train_path against TRAIN_LAUNCHES (its record into `out`). Returns the
+    launches of the counted step."""
     opt = train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
                     batchSize=8, ngf=64, ndf=64, match_kernel=match_kernel)
     return train_path(
         P, TS, ST, g, opt,
         lambda: make_batch(g, 8, 256, 256, opt.semantic_nc),
         f"match_kernel {match_kernel} flagship training ({route} route)",
-        TRAIN_LAUNCHES[(match_kernel, route)], FLAGSHIP_LOSS_KEYS, steps)
+        TRAIN_LAUNCHES[(match_kernel, route)], FLAGSHIP_LOSS_KEYS, steps,
+        out=out)
 
 
 def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
@@ -1776,7 +1533,7 @@ def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
     def finite(losses):
         return all(bool(torch.isfinite(v)) for v in losses.values())
 
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     res = []
     records = AB.record_convs(lambda: res.append(step(state, batch, lr)))
@@ -1812,8 +1569,10 @@ def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
           f"{peak:.2f} GiB", flush=True)
     if out is not None:
         out.update(s_per_step=dt, images_per_s=b / dt, peak_gib=peak)
-    if profile:
-        profile_call(lambda: step(state, batch, lr))
+    if profile:     # the timed steps warmed it up
+        rec = profile_call(lambda: step(state, batch, lr), warmup=False)
+        if out is not None and rec is not None:
+            out["busy_ms"] = rec["busy_ms"]
     del nets, state, step, batch, losses, vis
     torch.cuda.empty_cache()
     return launches
@@ -1865,7 +1624,7 @@ def entry_twins(L) -> None:
             "--weight_mask", "100.0", "--use_ema", "--vgg_normal_correct",
             "--save_epoch_freq", "1", "--print_freq", "8",
             "--display_freq", "16"]
-        counted = _counted()
+        counted = counted_entries()
         per_step = TRAIN_LAUNCHES[(3, "kernels")]
         runs, step_s = {}, []
         for name, extra in (("twin", []),
@@ -2001,7 +1760,7 @@ def serve_graphs(P, cfg, L, g) -> dict:
     from cocosnet_tpu_torch.tools import serve as SV
     from cocosnet_tpu_torch.train.steps import make_inference_step
     L.set_compute_dtype(torch.bfloat16)
-    counted = _counted()
+    counted = counted_entries()
     captures, kept = {}, None
     for mk in (3, 1):
         opt = inference_opt(cfg, mk)
@@ -2266,7 +2025,7 @@ def config_reference_check(P, cfg, g, mode) -> None:
     gpu.corr.load_state_dict(cpu.corr.state_dict())
     gpu.gen.load_state_dict(cpu.gen.state_dict())
     want = P.inference(cpu, P.preprocess_input(opt, batch, device="cpu"))
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     res = []
     records = AB.record_convs(lambda: res.append(P.inference(
@@ -2308,7 +2067,7 @@ def config_forward(P, cfg, L, g, mode) -> dict:
     condition_weights(nets.gen, g, "cuda")
     batches = [{k: v.cuda() for k, v in config_batch(
         g, mode, b, 256, 256, opt.semantic_nc).items()} for _ in range(2)]
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     res = []
     records = AB.record_convs(lambda: res.append(P.inference(
@@ -2423,7 +2182,7 @@ def config_test_twin(P, cfg, L, g, mode, base) -> None:
                    os.path.join(ck, mode, f"cond_net_{fname}.pth"))
     del nets
     torch.cuda.empty_cache()
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     out = os.path.join(base, "output")
     try:
@@ -2586,7 +2345,7 @@ def config_train_twin(L, mode, base) -> None:
              tables, "--batchSize", "4", "--crop_size", "256",
              "--load_size", "256", "--nThreads", "4", "--checkpoints_dir",
              ck, "--name", mode, "--output_dir", out] + PUBLISHED_ARGV[mode]
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     try:
         run = TTRAIN.main(flags + ["--niter", "1", "--niter_decay", "0",
@@ -2766,9 +2525,8 @@ def check_shift9_rect(S, g, *, m, swap, square):
         sdpa(qr, kr, vr, CORR_TAU), (qr, kr, vr), go), runs=5)
     del q, k, qr, kr, vr
     torch.cuda.empty_cache()
-    c3 = 3 * c
-    fwd_flops = 2.0 * b * nq * n * (c3 + d)
-    bwd_flops = 2.0 * b * nq * n * (3 * c3 + 2 * d)
+    fwd_flops = shift9_fwd_flops(b, nq, n, c, d)
+    bwd_flops = shift9_bwd_flops(b, nq, n, c, d)
     fb = tc_bound(_nbytes(f3, g3, v, qv, kv) + b * nq * (d + 1) * 4,
                   fwd_flops)
     bb = tc_bound(_nbytes(*args[:-1]) + _nbytes(*got), bwd_flops)
@@ -2853,7 +2611,7 @@ def sp_runs(P, cfg, TS, ST, data, model):
     losses, the parameters after the step (on the host) and the launches."""
     from cocosnet_tpu_torch import mesh as M
     mesh = M.global_mesh()
-    counted = _counted()
+    counted = counted_entries()
     out = {}
     if data == 1:
         opt = sp_inference_opt(cfg, model)
@@ -2940,16 +2698,25 @@ def sp_worker(rank, world, init, data, model, tmp):
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
 
 
-def sp_job(data, model, tmp) -> list:
-    """sp_runs of every rank of a data x model job of processes sharing the
-    card over gloo (a file:// rendezvous under tmp); their results."""
+def sp_job(data, model, tmp):
+    """Starts every rank of a data x model job of processes sharing the
+    card over gloo (a file:// rendezvous in a directory of its own under
+    tmp); returns a function that waits for them and returns their
+    results."""
     import torch.multiprocessing as mp
     world = data * model
-    init = "file://" + os.path.join(tmp, f"store_{data}x{model}")
-    mp.start_processes(sp_worker, args=(world, init, data, model, tmp),
-                       nprocs=world, join=True, start_method="spawn")
-    return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
-            for r in range(world)]
+    where = os.path.join(tmp, f"{data}x{model}")
+    os.makedirs(where)
+    init = "file://" + os.path.join(where, "store")
+    ctx = mp.start_processes(sp_worker, args=(world, init, data, model, where),
+                             nprocs=world, join=False, start_method="spawn")
+
+    def results() -> list:
+        while not ctx.join():
+            pass
+        return [torch.load(os.path.join(where, f"rank{r}.pt"))
+                for r in range(world)]
+    return results
 
 
 def _allclose(a, b, rtol, atol) -> float:
@@ -2968,19 +2735,18 @@ def parallelism(P, cfg, TS, ST) -> dict:
     import torch.distributed as dist
 
     from cocosnet_tpu_torch import mesh as M
+    # the two jobs and the one process run at once (the script's time;
+    # they ran one after another before phases 13 and 14 came)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    t0 = time.perf_counter()
+    jobs = [sp_job(1, 2, tmp), sp_job(2, 1, tmp)]
     M.set_global_mesh(None)
     one = sp_runs(P, cfg, TS, ST, 1, 1)
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
-    t0 = time.perf_counter()
-    model_job = sp_job(1, 2, tmp)
-    t_model = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    data_job = sp_job(2, 1, tmp)
-    t_data = time.perf_counter() - t0
-    print(f"     the 1 x 2 job took {t_model:.1f} s, the 2 x 1 job "
-          f"{t_data:.1f} s (two processes each, spawned, on the one card)",
-          flush=True)
+    model_job, data_job = (results() for results in jobs)
+    print(f"     the 1 x 2 and 2 x 1 jobs and the one process took "
+          f"{time.perf_counter() - t0:.1f} s together (four processes "
+          f"spawned, and this one, on the one card)", flush=True)
     for r, res in enumerate(model_job):
         worst = _allclose(res["infer_fake"], one["infer_fake"], 1e-4, 2e-4)
         _check(worst <= 1 and res["infer_launches"]["attend_shift9"] == 1,
@@ -3129,7 +2895,7 @@ def graph_check(P, L, g, opt, tag) -> dict:
     batches = [{k: v.cuda() for k, v in make_batch(
         g, b, 256, 256, opt.semantic_nc).items()} for _ in range(2)]
     calibrate_batchnorm(P, L, nets, batches[0])
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     want = [SV.quantize(infer(batches[0])["fake_image"])]
     torch.cuda.synchronize()
@@ -3176,7 +2942,7 @@ def extras_forward(P, cfg, L, C, g) -> dict:
     condition_weights(nets.gen, g, "cuda")
     batch = make_batch(g, 6, 256, 256, opt.semantic_nc)
     data = P.preprocess_input(opt, batch)
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     res = []
     records = AB.record_convs(lambda: res.append(P.inference(nets, data)))
@@ -3303,12 +3069,12 @@ def architecture_branches(P, cfg, L, C, TS, ST, g) -> dict:
         tag = (f"(b) extras B{b} training"
                + (", --remat" if remat else "")
                + (" --remat_full" if whole else ""))
-        rec = {}
+        rec = {}     # 2 timed steps (3 before phases 13 and 14 came)
         out[tag] = train_path(
             P, TS, ST, g, full(b, **EXTRAS, remat=remat,
                                remat_full=whole),
             lambda: make_batch(g, b, 256, 256, 151), tag,
-            REMAT_LAUNCHES[whole], FLAGSHIP_LOSS_KEYS, 3, profile=False,
+            REMAT_LAUNCHES[whole], FLAGSHIP_LOSS_KEYS, 2, profile=False,
             out=rec)
         info[tag] = rec
     L.set_compute_dtype(None)
@@ -3317,6 +3083,230 @@ def architecture_branches(P, cfg, L, C, TS, ST, g) -> dict:
     print("phase 12 readings: " + json.dumps(info), flush=True)
     print(f"phase 12 took {time.perf_counter() - t12:.0f} s", flush=True)
     return out, fwd["row"]
+
+
+# ----------------------------------------------------------------- phase 13
+
+# tests/test_trajectory_parity.py's schedule, steps 0-3 (|t| + 1e-2 below)
+TRAJ_TOLS = (2e-3, 2e-2, 5e-2, 2e-1)
+TRAJ_STEPS = 50
+# the kernel route's launches a step of the trajectory's setting (match
+# kernel 1, 64 px: N = M = 256)
+TRAJ_LAUNCHES = _launches(attend_corr=1, attend_corr_backward=1)
+
+
+def trajectory() -> dict:
+    """Phase 13: the training trajectory at tools/parity_trajectory.py's
+    setting (match_kernel 1, 64 px, batch 2, ngf 64, ndf 16, EMA, TTUR;
+    cocosnet_tpu_torch/tools/parity_trajectory.run_port), the same seeded
+    batches and conditioned weights on every route. (a) Four f32 steps on
+    the kernel route on the card against the same route's plain versions on
+    the CPU, held to the schedule of tests/test_trajectory_parity.py, with
+    corr_fwd.cu / corr_bwd.cu launched once a step. (b) TRAJ_STEPS steps of
+    the f32 library route, the f32 kernel route and the bf16 kernel route on
+    the card, every term finite on every step; each route's mean and max
+    rel per term against the f32 library route printed beside
+    PARITY_TRAJECTORY.json's JAX-against-reference figures (measurements:
+    tau 0.01 makes the dynamics chaotic, and no bound holds them yet).
+    Returns the kernel route's launches over the four steps of (a)."""
+    from cocosnet_tpu_torch.tools import parity_trajectory as PT
+    batches = PT.make_batches(TRAJ_STEPS)
+    init_sd, vgg_sd = PT.make_init_sd(0), PT.make_vgg_sd(7)
+    t = time.perf_counter()
+    cpu, _ = PT.run_port(batches[:len(TRAJ_TOLS)], init_sd, vgg_sd, "cpu",
+                         "kernels")
+    cpu_s = time.perf_counter() - t
+    counted = counted_entries()
+    _zero_counts(counted)
+    card, _ = PT.run_port(batches[:len(TRAJ_TOLS)], init_sd, vgg_sd, "cuda",
+                          "kernels")
+    launches = {k: fn.launches for k, fn in counted.items()}
+    steps = len(TRAJ_TOLS)
+    want = {k: n * steps for k, n in TRAJ_LAUNCHES.items()}
+    _check(launches == want, f"trajectory kernel route: {steps} steps "
+           f"launched {launches} == {want} (corr_fwd.cu and corr_bwd.cu "
+           f"once a step)")
+    _check(set(card) == set(cpu) == set(FLAGSHIP_LOSS_KEYS),
+           f"trajectory terms {sorted(card)}")
+    worst = {}
+    for term in sorted(cpu):
+        for s, tol in enumerate(TRAJ_TOLS):
+            a, b = cpu[term][s], card[term][s]
+            rel = abs(b - a) / (abs(a) + 1e-2)
+            if rel / tol > worst.get(term, (0.0, 0, 0.0))[0]:
+                worst[term] = (rel / tol, s, rel)
+            _check(bool(np.isfinite(b)) and rel < tol,
+                   f"trajectory f32 kernel route, card vs CPU, {term} step "
+                   f"{s}: {b:.6g} vs {a:.6g}, rel {rel:.3g} < {tol:g}")
+    print("trajectory (a): per term the step nearest its bound (rel / "
+          "tol): " + ", ".join(f"{k} step {s} {r:.2g} ({f:.2f})"
+                              for k, (f, s, r) in worst.items())
+          + f"; the CPU's 4 steps took {cpu_s:.1f} s", flush=True)
+    runs = {}
+    for route, dtype in (("library", "f32"), ("kernels", "f32"),
+                         ("kernels", "bf16")):
+        t = time.perf_counter()
+        curves, _ = PT.run_port(batches, init_sd, vgg_sd, "cuda", route,
+                                dtype)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        _check(all(len(v) == TRAJ_STEPS and bool(np.isfinite(v).all())
+                   for v in curves.values()),
+               f"trajectory {dtype} {route} route: {TRAJ_STEPS} steps, every "
+               f"term finite on every step ({dt:.1f} s, "
+               f"{1e3 * dt / TRAJ_STEPS:.1f} ms a step with set-up)")
+        runs[(route, dtype)] = curves
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "PARITY_TRAJECTORY.json")) as f:
+        jax_ref = json.load(f)
+    base = runs[("library", "f32")]
+    print(f"trajectory (b): {TRAJ_STEPS} steps on the card, rel |x - f32 "
+          "library| / (|f32 library| + 1e-3), mean / max per term, beside "
+          "PARITY_TRAJECTORY.json's JAX against the reference (mean / max):",
+          flush=True)
+    for term in sorted(base):
+        t0 = np.asarray(base[term])
+        cells = []
+        for key in (("kernels", "f32"), ("kernels", "bf16")):
+            rel = np.abs(np.asarray(runs[key][term]) - t0) / (
+                np.abs(t0) + 1e-3)
+            cells.append(f"{key[1]} {key[0]} {rel.mean():.4g} / "
+                         f"{rel.max():.4g}")
+        ref = jax_ref.get(term, {})
+        print(f"     {term:12s} " + "; ".join(cells)
+              + f"; JAX vs reference {ref.get('mean_rel', float('nan')):.4g}"
+                f" / {ref.get('max_rel', float('nan')):.4g}; f32 library "
+                f"first {t0[0]:.4g} last {t0[-1]:.4g}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------- phase 14
+
+def _sum_launches(*dicts) -> dict:
+    out = {}
+    for d in dicts:
+        for k, n in d.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: n for k, n in launches.items() if n}
+
+
+def profile_twins(phase4: dict, phase5: dict) -> dict:
+    """Phase 14, the profile twins: tools/profile_inference.py at mk3 B6
+    and tools/profile_train.py at mk3 B8 (bf16 policy), their tables
+    printed and written to build/profiles/; each stage's profile must record
+    every launch its wrappers counted (the twins raise otherwise), and the
+    hand-written launches of the stages must be those phases 4 and 5 hold:
+    the full forward INFERENCE_LAUNCHES[3], the correspondence and the
+    generator together the same, the gather one-hot adaptor the one-hot
+    conv once, the residual stack its 8 statistics convs, attend_shift9 the
+    shift9 forward once; the full step and the G phase TRAIN_LAUNCHES[(3,
+    "kernels")], the G forward the shift9 forward once, the other segments
+    none. Prints each full path's device-busy ms beside phases 4's and 5's
+    (`phase4`, `phase5`: their records). Returns the full forward's and the
+    full step's launches."""
+    from cocosnet_tpu_torch.tools import profile_inference as PI
+    from cocosnet_tpu_torch.tools import profile_train as PTR
+    rows = PI.main(["--iters", "3"])
+    inf = {r["name"].strip(): r["launches"] for r in rows}
+    full = _nonzero(INFERENCE_LAUNCHES[3])
+    _check(inf["full inference"] == full
+           and _sum_launches(inf["correspondence total"],
+                             inf["generator total"]) == full
+           and inf["adaptor (seg, gather-onehot)"].get("conv3x3_onehot") == 1
+           and "conv3x3_onehot" not in inf["adaptor (seg, 151ch)"]
+           and inf["residual stack (4x407ch)"] == {"conv3x3_fused_stats": 8}
+           and inf["attend_shift9 (fused kernel)"] == {"attend_shift9": 1}
+           and not inf["correlation attend (C=2304)"],
+           f"profile_inference: every stage's hand-written launches as the "
+           f"forward's ({full}): {inf}")
+    print(f"profile_inference full forward device busy "
+          f"{_ms(rows[3]['profile']['busy_ms'])} ms; phase 4's "
+          f"{_ms(phase4.get('busy_ms'))} ms", flush=True)
+    rows = PTR.main(["--iters", "2"])
+    seg = {r["name"].strip(): r["launches"] for r in rows}
+    step = _nonzero(TRAIN_LAUNCHES[(3, "kernels")])
+    _check(seg["full train_step"] == step
+           and seg["G phase (bwd+adam+EMA)"] == step
+           and seg["G fwd (losses)"] == {"attend_shift9": 1}
+           and not any(seg[k] for k in seg if k not in (
+               "full train_step", "G phase (bwd+adam+EMA)",
+               "G fwd (losses)")),
+           f"profile_train: every segment's hand-written launches as the "
+           f"step's ({step}): {seg}")
+    print(f"profile_train full step device busy "
+          f"{_ms(rows[-1]['profile']['busy_ms'])} ms; phase 5's "
+          f"{_ms(phase5.get('busy_ms'))} ms", flush=True)
+    return {"inference": inf["full inference"],
+            "train step": seg["full train_step"]}
+
+
+def tool_twins() -> None:
+    """Phase 14, the other tools: eval_metrics' VGG19 features of 16
+    synthetic images on the card against the CPU (f32, TF32 off: relative
+    L2 within 1e-4), SWD and FID on them; mask_to_edge on phase 9's
+    synthetic CelebA-HQ tree, its stack equal to the one
+    data/celebahqedge.get_label_tensor builds for the same id with no flip
+    and no crop."""
+    import shutil
+    import tempfile
+
+    from cocosnet_tpu_torch.config import test_defaults
+    from cocosnet_tpu_torch.data import synthetic as SYN
+    from cocosnet_tpu_torch.data.celebahqedge import CelebAHQEdgeDataset
+    from cocosnet_tpu_torch.tools import eval_metrics as EM
+    from cocosnet_tpu_torch.tools import mask_to_edge as ME
+    rs = np.random.RandomState(3)
+    # smooth colour fields with noise: 16 images of 128 x 128
+    base = rs.rand(16, 8, 8, 3)
+    imgs = np.clip(np.kron(base, np.ones((1, 16, 16, 1))) * 200
+                   + rs.rand(16, 128, 128, 3) * 55, 0, 255).astype(np.uint8)
+    # the extractor's tower at unit signal scale (its seeded random init
+    # leaves relu5_2 at zero), the same weights on both devices
+    card = EM.vgg_feature_extractor(device="cuda")
+    host = EM.vgg_feature_extractor(device="cpu")
+    vgg = host.vgg
+    condition_weights(vgg, torch.Generator().manual_seed(5), "cpu")
+    card.vgg.load_state_dict(vgg.state_dict())
+    fc, fh = card(imgs), host(imgs)
+    scale = float(np.linalg.norm(fh))
+    rel = float(np.linalg.norm(fc - fh)) / max(scale, 1e-30)
+    _check(fc.shape == (16, 512) and bool(np.isfinite(fc).all())
+           and scale > 0 and rel <= 1e-4,
+           f"eval_metrics VGG19 relu5_2 features (16, 512) on the card vs "
+           f"the CPU (conditioned random weights; |features| {scale:.4g}): "
+           f"relative L2 {rel:.3g} <= 1e-4")
+    swd = EM.swd(imgs[:8], imgs[8:])
+    fid = EM.fid_from_features(fc[:8], fc[8:])
+    _check(bool(np.isfinite(swd["avg"])) and bool(np.isfinite(fid)),
+           f"eval_metrics SWD x100 {swd['avg']:.4g} (per level "
+           + ", ".join(f"{k}: {v:.4g}" for k, v in swd.items() if k != "avg")
+           + f"), FID on the card's features {fid:.4g}, finite")
+    tmp = tempfile.mkdtemp(prefix="cocosnet_tools_")
+    try:
+        root, tables = os.path.join(tmp, "celeb"), os.path.join(tmp, "tables")
+        SYN.make_celebahq_tree(root, n_train=4, n_val=8, size=288,
+                               block=32, table_dir=tables)
+        opt = test_defaults(dataset_mode="celebahqedge", dataroot=root,
+                            ref_table_dir=tables, load_size=256,
+                            crop_size=256)
+        ds = CelebAHQEdgeDataset(opt)
+        params = {"crop_pos": (0, 0), "flip": False}
+        for idx in range(4):
+            stack = ME.build_one(root, idx, 256)
+            want = ds.get_label_tensor(ds.imgpath_to_labelpath(
+                os.path.join(root, "CelebA-HQ-img", f"{idx}.jpg")), params)
+            _check(stack.shape == (256, 256, 15) and stack.dtype == np.uint8
+                   and np.array_equal(stack.astype(np.float32) / 255, want),
+                   f"mask_to_edge id {idx}: the (256, 256, 15) uint8 stack "
+                   f"/ 255 equals celebahqedge's label tensor ("
+                   f"{int((stack[..., 0] > 0).sum())} edge pixels)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g, g_widths) -> dict:
@@ -3437,11 +3427,7 @@ def main() -> None:
     from cocosnet_tpu_torch.train import steps as ST
 
     # phase 1: environment and build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     t_start = t0 = time.perf_counter()
@@ -3481,14 +3467,16 @@ def main() -> None:
     _phase_done(3, t_start)
 
     # phases 4 and 4b: flagship-width inference, bf16 policy
-    runs = {"inference": flagship_inference(P, cfg, L, g, 3, 10),
+    phase4, phase5 = {}, {}
+    runs = {"inference": flagship_inference(P, cfg, L, g, 3, 10, phase4),
             "match_kernel 1 inference": flagship_inference(P, cfg, L, g, 1,
                                                            10)}
     _phase_done(4, t_start)
     # phases 5 and 5b: flagship-width training, bf16 policy
     runs["train step"] = flagship_training(P, cfg, TS, ST, g, 3, "kernels",
-                                           5)
-    # (5b-5d time 3 steps, 5 before phase 10 came: the script's time)
+                                           3, phase5)
+    # (each route times 3 steps: 5 before phase 10 came, and at mk3 before
+    # phases 13 and 14 came: the script's time)
     for route in ("library", "kernels"):
         with train_route(route):
             runs[f"match_kernel 1 train step, {route} route"] = \
@@ -3506,7 +3494,7 @@ def main() -> None:
     from cocosnet_tpu_torch.tools import ab_dw, bench_corr
     print("tools/ab_dw.py twin:", flush=True)
     ab_dw.main([])
-    counted = _counted()
+    counted = counted_entries()
     _zero_counts(counted)
     print("tools/bench_corr.py twin:", flush=True)
     bench = bench_corr.main([])
@@ -3566,6 +3554,22 @@ def main() -> None:
         P, cfg, L, C, TS, ST, torch.Generator().manual_seed(14))
     runs.update(branch_runs)
     _phase_done(12, t_start)
+
+    # phase 13: the training trajectory (card against CPU, then 50 steps of
+    # three routes on the card)
+    t13 = time.perf_counter()
+    runs["trajectory, kernels route (4 steps)"] = trajectory()
+    print(f"phase 13 took {time.perf_counter() - t13:.0f} s", flush=True)
+    _phase_done(13, t_start)
+
+    # phase 14: the profile twins, eval_metrics and mask_to_edge
+    t14 = time.perf_counter()
+    profile_twins(phase4, phase5)
+    print(f"phase 14 profile twins took {time.perf_counter() - t14:.0f} s",
+          flush=True)
+    tool_twins()
+    print(f"phase 14 took {time.perf_counter() - t14:.0f} s", flush=True)
+    _phase_done(14, t_start)
 
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)

@@ -403,3 +403,33 @@ def init_weights(module: tnn.Module, generator: torch.Generator) -> None:
         reset = getattr(m, "reset_parameters", None)
         if reset is not None:
             reset(generator)
+
+
+def condition_weights(module: tnn.Module, g: torch.Generator, dev) -> None:
+    """Random weights at unit signal scale from generator g: conv weights
+    at 1/sqrt(fan_in), biases at 0.1, PReLU 0.2, attention gate 0.5, and
+    spectral u/v set to the leading singular vectors by power iteration,
+    so sigma is the spectral norm (the init leaves u/v random, sigma near
+    0 and the activations far from unit scale)."""
+    from cocosnet_tpu_torch.nn.blocks import Attention
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, Conv2d):
+                w = m.weight if m.weight_norm is None else m.weight_orig
+                w.copy_((torch.randn(w.shape, generator=g)
+                         * w[0].numel() ** -0.5).to(dev))
+                if m.bias is not None:
+                    m.bias.copy_((torch.randn(m.bias.shape, generator=g)
+                                  * 0.1).to(dev))
+                if m.weight_norm == "spectral":
+                    wm = w.reshape(w.shape[0], -1)
+                    u = m.weight_u
+                    for _ in range(50):
+                        v = F.normalize(wm.t() @ u, dim=0)
+                        u = F.normalize(wm @ v, dim=0)
+                    m.weight_u.copy_(u)
+                    m.weight_v.copy_(v)
+            elif isinstance(m, PReLU):
+                m.weight.fill_(0.2)
+            elif isinstance(m, Attention):
+                m.gamma.fill_(0.5)

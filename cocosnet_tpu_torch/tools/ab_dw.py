@@ -28,10 +28,8 @@ import contextlib
 
 import torch
 
-from cocosnet_tpu_torch.tools import time_ms
-
-# published bf16 tensor-core peak of one H100 SXM (dense), FLOP/s
-BF16_FLOP_S = 989e12
+from cocosnet_tpu_torch.utils.profiling import (BF16_FLOP_S, bound_ms,
+                                                conv3x3_flops, time_ms)
 
 
 def record_convs(fn) -> list:
@@ -188,9 +186,9 @@ def main(argv=None) -> list:
         ms_lib = time_ms(lambda: torch.nn.grad.conv2d_weight(
             xp, (co, ci, 3, 3), gc, padding=0 if refl else 1), args.iters)
         ms_k = time_ms(lambda: C.conv3x3_dw(x, g, reflect=refl), args.iters)
-        flops = 2.0 * b * h * w * 9 * ci * co
         nbytes = 2 * b * h * w * (ci + co) + 4 * (9 * ci * co + co)
-        bound = 1e3 * max(flops / BF16_FLOP_S, nbytes / 3.35e12)
+        bound, _ = bound_ms(nbytes, conv3x3_flops(b, h, w, ci, co),
+                            BF16_FLOP_S)
         gated = (h, w, ci, co, refl) in C.DW_WINNERS
         rows.append(dict(shape=(b, h, w, ci, co, refl), count=cnt,
                          cudnn_ms=ms_lib, kernel_ms=ms_k, bound_ms=bound,

@@ -29,8 +29,11 @@ parent, change, change, parent; from the repository root:
     python3 cocosnet_tpu_torch/tools/ab_routes.py --tag change \\
         --route library --out build/ab/routes.jsonl
 
-The package is imported from --root (default: this checkout); the helpers
-(weights, batches, configurations) are this checkout's chip_smoke.py.
+The package is imported from --root (default: this checkout); the
+configurations, batches and routes are this checkout's chip_smoke.py, the
+timers, the profile reader and the weights' conditioning the package's
+(utils/profiling.py, nn/layers.condition_weights), which chip_smoke.py
+imports as well: a --root checkout must have them.
 --only limits a process to some of the paths (mk3_inference,
 mk1_inference, mk3_step, other_steps), for more turns of one path in a
 call.
@@ -66,41 +69,31 @@ def _smoke():
 
 def busy(fn) -> dict:
     """Device busy ms (the union of the kernels' intervals), host ms and the
-    idle share of one synchronized call of fn, after one warm-up."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    total, end = 0.0, float("-inf")
-    for s, e in spans:
-        total += max(0.0, e - max(s, end))
-        end = max(end, e)
-    return dict(busy_ms=total / 1e3, host_ms=wall,
-                idle=1 - total / 1e3 / wall if spans else None,
-                kernels=len(spans))
+    idle share of one synchronized call of fn, after one warm-up
+    (utils/profiling.kernel_breakdown)."""
+    from cocosnet_tpu_torch.utils.profiling import kernel_breakdown
+    rec = kernel_breakdown(fn)
+    if rec is None:
+        return dict(busy_ms=None, host_ms=None, idle=None, kernels=0)
+    return dict(busy_ms=rec["busy_ms"], host_ms=rec["wall_ms"],
+                idle=1 - rec["busy_ms"] / rec["wall_ms"],
+                kernels=rec["kernels"])
 
 
 def inference(CS, P, cfg, L, g, use_pallas, match_kernel=3) -> dict:
+    from cocosnet_tpu_torch.utils.profiling import TIMED_RUNS, time_ms
     L.set_compute_dtype(torch.bfloat16)
     opt = dataclasses.replace(CS.inference_opt(cfg, match_kernel),
                               use_pallas=use_pallas)
     nets = P.Pix2PixNets(opt, seed=0)
-    CS.condition_weights(nets.corr, g, "cuda")
-    CS.condition_weights(nets.gen, g, "cuda")
+    L.condition_weights(nets.corr, g, "cuda")
+    L.condition_weights(nets.gen, g, "cuda")
     batch = CS.make_batch(g, 6, 256, 256, opt.semantic_nc)
     data = P.preprocess_input(opt, batch)
-    fwd_ms = CS.time_ms(lambda: P.inference(nets, data))
+    fwd_ms = time_ms(lambda: P.inference(nets, data))
     one = {k: v[:1] for k, v in batch.items()}
     lat = []
-    for _ in range(CS.TIMED_RUNS + 2):
+    for _ in range(TIMED_RUNS + 2):
         t = time.perf_counter()
         P.inference(nets, P.preprocess_input(opt, one))
         torch.cuda.synchronize()
@@ -118,9 +111,10 @@ def train(CS, P, cfg, TS, ST, g, match_kernel, use_pallas, steps=10,
     opt = CS.train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
                        batchSize=8, ngf=64, ndf=64, match_kernel=match_kernel,
                        use_pallas=use_pallas)
+    from cocosnet_tpu_torch.nn.layers import condition_weights
     nets = P.Pix2PixNets(opt, seed=0)
     for net in nets.modules():
-        CS.condition_weights(net, g, "cuda")
+        condition_weights(net, g, "cuda")
     state = TS.create_train_state(opt, nets)
     step = ST.make_train_step(nets)
     lr = TS.lrs_for_epoch(opt, 1)

@@ -25,7 +25,7 @@ import sys
 import numpy as np
 import torch
 
-from cocosnet_tpu_torch.tools import time_ms
+from cocosnet_tpu_torch.utils.profiling import time_ms
 
 TAU = 0.01
 

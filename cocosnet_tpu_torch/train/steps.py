@@ -1,7 +1,8 @@
 """The fused train step: generator forward + its loss terms + Adam update on
 netG + netCorr, the EMA shadows, then the discriminator update on the same
-fake, detached; the discriminator-only step of --D_steps_per_G > 1; and
-the inference step.
+fake, detached; the discriminator-only step of --D_steps_per_G > 1; the
+generator half alone (tools/profile_train.py times it apart); and the
+inference step.
 
 Counterpart of cocosnet_tpu/train/steps.py `make_train_step`, `make_d_step`
 and `make_inference_step` (the reference's per-iteration schedule,
@@ -72,6 +73,38 @@ def _apply_grads(optimizer: torch.optim.Optimizer, params: Sequence,
     optimizer.zero_grad(set_to_none=True)
 
 
+def _g_phase(nets: P.Pix2PixNets, state: S.TrainState, data: P.Batch,
+             lr_g: float) -> Tuple[Dict[str, torch.Tensor], P.Batch]:
+    """The generator half of a step, inside train mode and
+    nn.layers.training(): the forward and its loss terms, Adam on netG +
+    netCorr, the EMA shadows. Returns (G losses, the forward's outputs)."""
+    opt = nets.opt
+    noise = P.draw_noise(opt, data, state.noise, train=True)
+    if opt.remat_full:
+        out = remat.checkpoint(P.generate_fake, nets, data, True, noise)
+    else:
+        out = P.generate_fake(nets, data, train=True, noise=noise)
+    with torch.no_grad():
+        out["ref_features"] = P.vgg_features(nets, data["ref_image"])
+        out["real_features"] = P.vgg_features(nets, data["real_image"])
+    g_losses = P.compute_generator_losses(nets, data, out)
+    g_params = list(state.g_params.values())
+    _apply_grads(state.opt_g, g_params, sum(g_losses.values()), lr_g)
+    if state.ema is not None:
+        S.ema_update(state.ema, state.g_params, opt.ema_beta)
+    return g_losses, out
+
+
+def _d_phase(nets: P.Pix2PixNets, state: S.TrainState, data: P.Batch,
+             fake_image: torch.Tensor, lr_d: float) -> Dict[str, torch.Tensor]:
+    """The discriminator half, on the fake detached, inside train mode and
+    nn.layers.training(): its losses and Adam on D."""
+    d_losses = P.compute_discriminator_losses(nets, data, fake_image)
+    _apply_grads(state.opt_d, S.d_parameters(nets), sum(d_losses.values()),
+                 lr_d)
+    return d_losses
+
+
 def make_train_step(nets: P.Pix2PixNets):
     """step(state, batch, lr) -> (losses, visuals). batch: the loader's
     dict (label, image, ref, label_ref, self_ref); lr: (lr_G, lr_D) from
@@ -86,31 +119,9 @@ def make_train_step(nets: P.Pix2PixNets):
         nets.set_train(True)
         try:
             with L.training():
-                # ---------------- generator step ------------------------
-                noise = P.draw_noise(opt, data, state.noise, train=True)
-                if opt.remat_full:
-                    out = remat.checkpoint(P.generate_fake, nets, data, True,
-                                           noise)
-                else:
-                    out = P.generate_fake(nets, data, train=True,
-                                          noise=noise)
-                with torch.no_grad():
-                    out["ref_features"] = P.vgg_features(nets,
-                                                         data["ref_image"])
-                    out["real_features"] = P.vgg_features(nets,
-                                                          data["real_image"])
-                g_losses = P.compute_generator_losses(nets, data, out)
-                g_params = list(state.g_params.values())
-                _apply_grads(state.opt_g, g_params, sum(g_losses.values()),
-                             lr_g)
-                if state.ema is not None:
-                    S.ema_update(state.ema, state.g_params, opt.ema_beta)
-
-                # ---------------- discriminator step --------------------
-                d_losses = P.compute_discriminator_losses(
-                    nets, data, out["fake_image"])
-                _apply_grads(state.opt_d, S.d_parameters(nets),
-                             sum(d_losses.values()), lr_d)
+                g_losses, out = _g_phase(nets, state, data, lr_g)
+                d_losses = _d_phase(nets, state, data, out["fake_image"],
+                                    lr_d)
         finally:
             nets.set_train(False)
         state.step += 1
@@ -122,6 +133,23 @@ def make_train_step(nets: P.Pix2PixNets):
     return train_step
 
 
+def make_g_step(nets: P.Pix2PixNets):
+    """step(state, batch, lr) -> (G losses, the forward's outputs): the
+    train step's generator half alone (tools/profile_train.py times it
+    apart); state.step stays where it is."""
+    def g_step(state: S.TrainState, batch, lr):
+        data = P.preprocess_input(nets.opt, batch, device=nets.device)
+        nets.set_train(True)
+        try:
+            with L.training():
+                g_losses, out = _g_phase(nets, state, data, float(lr[0]))
+        finally:
+            nets.set_train(False)
+        return _global_losses(g_losses), out
+
+    return g_step
+
+
 def make_d_step(nets: P.Pix2PixNets):
     """step(state, batch, lr, fake_image) -> {"D_Fake", "D_real"}: the
     discriminator-only update of the iterations where --D_steps_per_G > 1
@@ -131,15 +159,12 @@ def make_d_step(nets: P.Pix2PixNets):
     the step."""
     def d_step(state: S.TrainState, batch, lr,
                fake_image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        lr_d = float(lr[1])
         data = P.preprocess_input(nets.opt, batch, device=nets.device)
         nets.set_train(True)
         try:
             with L.training():
-                d_losses = P.compute_discriminator_losses(nets, data,
-                                                          fake_image)
-                _apply_grads(state.opt_d, S.d_parameters(nets),
-                             sum(d_losses.values()), lr_d)
+                d_losses = _d_phase(nets, state, data, fake_image,
+                                    float(lr[1]))
         finally:
             nets.set_train(False)
         state.step += 1
