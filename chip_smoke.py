@@ -19,8 +19,8 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
 - the tool twins at their defaults: cocosnet_tpu_torch/tools/ab_dw.py and
   cocosnet_tpu_torch/tools/bench_corr.py (the large-descriptor correlation
   kernels' path);
-- the command-line twins, cli/train.py (batch 8; then --D_steps_per_G 2;
-  then --continue_train) and cli/test.py (batch 6 on the saved state), on
+- the command-line twins, cli/train.py (batch 8; then --D_steps_per_G 2)
+  and cli/test.py (batch 6 on the saved state), on
   a synthetic ADE20k tree made from a seed: checkpoints written and loaded
   bit for bit, the test twin's output equal to make_inference_step's;
 - the serving path: tools/serve.make_serve_step captured as a CUDA graph
@@ -62,12 +62,12 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   (coordconv, the SE, nonlocal and deeper dilated adaptors, the CAM
   discriminator, mask noise, noise_for_mask): the batch-6 forward with its
   conv3x3.cu table, batch-8 training without remat, with --remat and with
-  --remat --remat_full, batch 16 with --remat (s/step, peak memory); (c)
+  --remat --remat_full (s/step, peak memory); (c)
   the explicit-matrix correspondence against the CPU;
 - the training trajectory (phase 13) at tools/parity_trajectory.py's
   setting (match_kernel 1, 64 px, batch 2, ngf 64): four f32 steps of the
   kernel route on the card against the CPU, held to
-  tests/test_trajectory_parity.py's schedule, then 50 steps each of the
+  tests/test_trajectory_parity.py's schedule, then 10 steps each of the
   f32 library, f32 kernel and bf16 kernel routes, finite, their spread
   printed beside PARITY_TRAJECTORY.json's;
 - the remaining tool twins (phase 14): profile_inference (mk3 B6) and
@@ -75,6 +75,18 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   by kernel family and its hand-written launches held to phases 4 and 5;
   eval_metrics' VGG19 features on the card against the CPU, SWD and FID;
   mask_to_edge against the celebahqedge loader's label stack;
+- --steps_per_dispatch (phase 15): train/steps.make_multi_train_step's
+  chunk, the fused step captured once as a CUDA graph and replayed a step
+  at a time: (a) at phase 13's setting (match_kernel 3, f32) a chunk of 2
+  against two eager steps on the card and against the CPU chunk from the
+  same state, then a capture and a replay on every other training route
+  (the match_kernel 1 kernels, the dW kernel, the fused conv, --remat,
+  --remat_full, the noise draws) against its eager step; (b) the flagship
+  mk3 B8 bf16 at K = 4, graph against eager: losses, the launches of the
+  capture call and of a replay's kernel records, s/step, idle share, peak
+  memory; (c) the train twin at --steps_per_dispatch 4 with a `latest`
+  save inside the chunk, a tail step and a resume; (d) a chunk in a
+  one-rank NCCL group;
 checking on each path that every kernel of that path was launched as often
 as the routing predicts.
 
@@ -1584,12 +1596,10 @@ def entry_twins(L) -> None:
     ADE20k tree made from a seed (24 training and 12 validation photos at
     384 x 288, so the resize and the random crop run):
     - the train twin (cli/train.py) with bench.py's training flags at batch
-      8 for one epoch, then under --D_steps_per_G 2, then the first run
-      resumed by --continue_train for a second epoch: finite losses,
-      state_latest/ and state_<epoch>/ written, the shift9 kernels launched
-      once per G step and on no D-only step, the step counter and iter.txt
-      carried over;
-    - the test twin (cli/test.py) at batch 6 on the resumed run's nets
+      8 for one epoch, then under --D_steps_per_G 2: finite losses,
+      state_latest/ and state_1/ written, the shift9 kernels launched once
+      per G step and on no D-only step (--continue_train: phase 15 (c));
+    - the test twin (cli/test.py) at batch 6 on the first run's nets
       with weights at unit signal scale, saved as state_cond/: its weights
       bit for bit the saved ones, the grids written, each forward kernel
       launched its per-forward count times the batches, and the first
@@ -1627,10 +1637,10 @@ def entry_twins(L) -> None:
         counted = counted_entries()
         per_step = TRAIN_LAUNCHES[(3, "kernels")]
         runs, step_s = {}, []
+        # (--continue_train: phase 15 (c), since phase 15 came: the
+        # script's time)
         for name, extra in (("twin", []),
-                            ("twin_d2", ["--D_steps_per_G", "2"]),
-                            ("twin resumed", ["--continue_train",
-                                              "--niter", "2"])):
+                            ("twin_d2", ["--D_steps_per_G", "2"])):
             _zero_counts(counted)
             run = TTRAIN.main(train_flags + ["--name", name.split()[0]]
                               + extra)
@@ -1653,22 +1663,15 @@ def entry_twins(L) -> None:
             runs[name] = run
             # each state_<label>/ holds every net, the EMA shadows and both
             # Adam states: 2.6 GB at this width
-            epoch = "2" if extra[:1] == ["--continue_train"] else "1"
-            run_dir = os.path.join(ck, name.split()[0])
+            run_dir = os.path.join(ck, name)
             files = set(os.listdir(os.path.join(run_dir, "state_latest"))) \
-                & set(os.listdir(os.path.join(run_dir, f"state_{epoch}")))
+                & set(os.listdir(os.path.join(run_dir, "state_1")))
             _check(files == {*CK.NET_FILES.values(), *CK.EMA_FILES.values(),
                              CK.OPTIMIZER_FILE},
-                   f"train twin {name}: state_latest/ and state_{epoch}/ "
-                   f"hold {sorted(files)}")
+                   f"train twin {name}: state_latest/ and state_1/ hold "
+                   f"{sorted(files)}")
             if name == "twin_d2":
                 shutil.rmtree(run_dir)
-        with open(os.path.join(ck, "twin", "iter.txt")) as f:
-            record = f.read().split()
-        _check(runs["twin resumed"].state.step == 6 and record == ["3", "0"],
-               f"--continue_train resumed at epoch 2 from iter.txt and "
-               f"state_latest: step {runs['twin resumed'].state.step} == 6, "
-               f"iter.txt {record} == ['3', '0']")
         print(f"train twin batch 8: {statistics.median(step_s):.4f} s/step "
               f"(median of {len(step_s)} steps after each run's first, G "
               f"and D-only; host clock over the loop, the wait for the "
@@ -1677,12 +1680,11 @@ def entry_twins(L) -> None:
         # the test twin reads weights at unit signal scale (6 steps from
         # the init the fakes are near flat), saved by the port as
         # state_cond/
-        trained = runs["twin resumed"].nets
+        trained = runs["twin"].nets
         g = torch.Generator().manual_seed(7)
         condition_weights(trained.corr, g, "cuda")
         condition_weights(trained.gen, g, "cuda")
-        CK.save_state(trained.opt, runs["twin resumed"].state, trained,
-                      "cond")
+        CK.save_state(trained.opt, runs["twin"].state, trained, "cond")
         _zero_counts(counted)
         test = TTEST.main(flags + ["--name", "twin", "--batchSize", "6",
                                    "--which_epoch", "cond"])
@@ -1888,22 +1890,23 @@ def served_files(L, nets, base) -> None:
 
 def serve_load(base) -> None:
     """Phase 8, third part: tools/bench_serve against the serve twin as a
-    subprocess on the card, from the weights of served_files: 480
+    subprocess on the card, from the weights of served_files: 240
     requests at batch 6 all at once with npy and with png results, then
-    200 at batch 1 at 10 requests/s; prints each JSON line."""
+    100 at batch 1 at 10 requests/s (480 and 200 before phase 15 came:
+    the script's time); prints each JSON line."""
     from cocosnet_tpu_torch.tools import bench_serve as BS
     src = os.path.join(base, "ade", "training")
     serve = SERVE_FLAGS + ["--checkpoints_dir",
                            os.path.join(base, "checkpoints"), "--name",
                            "serve"]
     for what, bench, extra in (
-            ("batch 6, all at once, npy", ["--n_requests", "480",
+            ("batch 6, all at once, npy", ["--n_requests", "240",
                                            "--warmup", "6"],
              ["--batchSize", "6", "--out_format", "npy"]),
-            ("batch 6, all at once, png", ["--n_requests", "480",
+            ("batch 6, all at once, png", ["--n_requests", "240",
                                            "--warmup", "6"],
              ["--batchSize", "6", "--out_format", "png"]),
-            ("batch 1 at 10 requests/s, png", ["--n_requests", "200",
+            ("batch 1 at 10 requests/s, png", ["--n_requests", "100",
                                                "--warmup", "2",
                                                "--arrival_rate", "10"],
              ["--batchSize", "1", "--out_format", "png"])):
@@ -1920,10 +1923,9 @@ def serve_load(base) -> None:
 def serving(P, cfg, L, g) -> dict:
     """Phase 8: the serving path on the card (serve_graphs, served_files,
     serve_load) on a synthetic ADE20k tree made from a seed (240 photos
-    of 384 x 288: bench_serve's 480 requests at batch 6 cycle through them
-    twice, and a cycle puts more entries in the serve twin's preprocess
-    cache than its 256, so no request finds its photos there from the
-    cycle before). Returns the capture calls' launches by (match_kernel,
+    of 384 x 288: bench_serve's 240 requests at batch 6 take each photo
+    once, so no request finds its photos in the serve twin's preprocess
+    cache). Returns the capture calls' launches by (match_kernel,
     batch)."""
     import shutil
     import tempfile
@@ -2633,6 +2635,13 @@ def sp_runs(P, cfg, TS, ST, data, model):
     p0 = {net: {k: t.detach().cpu().clone() for k, t in
                 getattr(nets, net).named_parameters()} for net in TRAINED}
     state = TS.create_train_state(opt, nets)
+    if mesh.size > 1:
+        # phase 15: a gloo job on the card refuses the captured chunk
+        try:
+            ST.make_multi_train_step(nets)
+            out["refused"] = ""
+        except RuntimeError as err:
+            out["refused"] = str(err)
     _zero_counts(counted)
     losses, visuals = ST.make_train_step(nets)(state, shard,
                                                TS.lrs_for_epoch(opt, 1))
@@ -2813,6 +2822,9 @@ def parallelism(P, cfg, TS, ST) -> dict:
                    for n in TRAINED for k in job[0]["p1"][n])
         _check(same, f"the {what} job's two ranks end the step with the same "
                f"parameters, bit for bit")
+        _check(all("cannot be captured" in r["refused"] for r in job),
+               f"the {what} job (gloo on the card) refuses "
+               f"make_multi_train_step: {job[0]['refused']!r}")
     # the backend choice where each rank has a card of its own: NCCL, one
     # rank (this machine has one card)
     backend = M.backend_for(torch.device("cuda"))
@@ -3021,8 +3033,7 @@ def architecture_branches(P, cfg, L, C, TS, ST, g) -> dict:
     (b) the extras (coordconv, SE, nonlocal, the deeper dilated adaptor,
         the CAM discriminator, mask noise and noise_for_mask): the B6
         forward with its conv3x3.cu table, B8 training without remat, with
-        --remat (conv_small) and with --remat --remat_full, then B16 with
-        --remat;
+        --remat (conv_small) and with --remat --remat_full;
     (c) the explicit-matrix correspondence at a small size.
     Returns {path: launches} and the records of its kernel rows."""
     out, info = {}, {}
@@ -3064,8 +3075,9 @@ def architecture_branches(P, cfg, L, C, TS, ST, g) -> dict:
     out["(b) inference"] = fwd["launches"]
     info["(b) B6 ms"] = fwd["ms"]
     L.set_compute_dtype(torch.bfloat16)
+    # (B16 with --remat before phase 15 came: the script's time)
     for b, remat, whole in ((8, False, False), (8, True, False),
-                            (8, True, True), (16, True, False)):
+                            (8, True, True)):
         tag = (f"(b) extras B{b} training"
                + (", --remat" if remat else "")
                + (" --remat_full" if whole else ""))
@@ -3089,7 +3101,8 @@ def architecture_branches(P, cfg, L, C, TS, ST, g) -> dict:
 
 # tests/test_trajectory_parity.py's schedule, steps 0-3 (|t| + 1e-2 below)
 TRAJ_TOLS = (2e-3, 2e-2, 5e-2, 2e-1)
-TRAJ_STEPS = 50
+# (50 before phase 15 came: the script's time)
+TRAJ_STEPS = 10
 # the kernel route's launches a step of the trajectory's setting (match
 # kernel 1, 64 px: N = M = 256)
 TRAJ_LAUNCHES = _launches(attend_corr=1, attend_corr_backward=1)
@@ -3309,6 +3322,543 @@ def tool_twins() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- phase 15
+
+# the chunks of phase 15: K = 2 at the small setting (a) and in the
+# one-rank NCCL group (d), K = 4 at full width (b) and in the train twin (c)
+SMALL_K = 2
+FLAGSHIP_K = 4
+# the graph's replays against the eager steps on the card from the same
+# state (the same kernels on the same inputs in the same order): every loss
+# at rel GRAPH_LOSS_TOL (|t| + 1e-2 below), each measure of the state
+# (_state_rel) within GRAPH_STATE_TOL. The card's reductions are not
+# deterministic run to run: two eager runs of the same two steps differ by
+# up to 5e-3 in these measures (printed beside), one step by 1e-4; a
+# replay that read a stale input or skipped an update misses by O(1)
+GRAPH_LOSS_TOL = 1e-5
+GRAPH_STATE_TOL = 1e-2
+
+
+def _chunk_opt(**kw):
+    """Phase 15's small setting: phase 13's (tools/parity_trajectory.py's:
+    64 px, batch 2, ngf 64, ndf 16, 12 classes, EMA, TTUR, f32) at
+    match_kernel 3 on the shift9 kernels; kw may set match_kernel 1."""
+    from cocosnet_tpu_torch.tools import parity_trajectory as PT
+    return PT.train_opt("kernels").replace(**{"match_kernel": 3, **kw})
+
+
+def _chunk_nets(P, opt, device, init):
+    """The nets of `opt` on `device` with phase 13's weights (init: the
+    (G, Corr, D) state dicts and the VGG's)."""
+    from cocosnet_tpu_torch.tools import parity_trajectory as PT
+    init_sd, vgg_sd = init
+    nets = P.Pix2PixNets(opt, device=device, seed=0)
+    for key, name in PT.NETS:
+        getattr(nets, name).load_state_dict(init_sd[key])
+    nets.vgg.load_state_dict(vgg_sd)
+    return nets
+
+
+def _copy_run(P, TS, nets, state, device):
+    """A second (nets, train state) on `device` holding the run's state:
+    every net's parameters and buffers, the EMA shadows, both Adam states
+    (through train.state.load_optimizer, as a checkpoint loads them), the
+    rates, the step counter and, on the same kind of device, the noise
+    generator's state."""
+    import copy
+    nets2 = copy.deepcopy(nets)
+    nets2.device = torch.device(device)
+    for net in nets2.modules():
+        net.to(nets2.device)
+    state2 = TS.create_train_state(nets.opt, nets2)
+    with torch.no_grad():
+        for k, v in (state.ema or {}).items():
+            state2.ema[k].copy_(v)
+    for side in ("opt_g", "opt_d"):
+        TS.load_optimizer(getattr(state2, side),
+                          copy.deepcopy(getattr(state, side).state_dict()))
+    state2.lrs, state2.step = state.lrs, state.step
+    if torch.device(device).type == nets.device.type:
+        state2.noise.set_state(state.noise.get_state())
+    return nets2, state2
+
+
+def _run_state(nets, state) -> dict:
+    """{part: {name: f32 tensor}} of a run's state, cloned where it lies:
+    the trained nets' parameters, spectral u/v and BatchNorm statistics,
+    the EMA shadows and Adam's two moments."""
+    out = {k: {} for k in ("params", "uv", "stats", "ema", "exp_avg",
+                           "exp_avg_sq")}
+    names = {}
+    for net in TRAINED:
+        m = getattr(nets, net)
+        for k, p in m.named_parameters():
+            out["params"][f"{net}.{k}"] = p.detach().float().clone()
+            names[p] = f"{net}.{k}"
+        for k, t in m.state_dict().items():
+            part = ("uv" if k.endswith(("weight_u", "weight_v")) else
+                    "stats" if k.endswith(("running_mean", "running_var"))
+                    else None)
+            if part:
+                out[part][f"{net}.{k}"] = t.float().clone()
+    out["ema"] = {k: v.float().clone() for k, v in (state.ema or {}).items()}
+    for o in (state.opt_g, state.opt_d):
+        for p, st in o.state.items():
+            for key in ("exp_avg", "exp_avg_sq"):
+                out[key][names[p]] = st[key].float().clone()
+    return out
+
+
+def _state_rel(got: dict, want: dict, start: dict) -> dict:
+    """How far one run's state (_run_state) lies from another's, both from
+    `start`, each part measured where `want` lies, in f64: the parameter
+    and EMA moves as ||got - want|| / ||want - start||, Adam's moments as
+    ||got - want|| / ||want||, the spectral u/v as the max abs difference,
+    the BatchNorm statistics as the max abs difference over each vector's
+    scale."""
+    def on(t, like):
+        return t.to(like.device, torch.float64)
+
+    def l2(part, base=None):
+        num = den = 0.0
+        for k, w in want[part].items():
+            w = w.double()
+            num += float(((on(got[part][k], w) - w) ** 2).sum())
+            ref = w if base is None else w - on(base[part][k], w)
+            den += float((ref ** 2).sum())
+        return (num / den) ** 0.5 if den else 0.0
+
+    out = {"params": l2("params", start), "exp_avg": l2("exp_avg"),
+           "exp_avg_sq": l2("exp_avg_sq")}
+    if want["ema"]:
+        out["ema"] = l2("ema", start)
+    out["uv"] = max(float((on(got["uv"][k], w) - w.double()).abs().max())
+                    for k, w in want["uv"].items())
+    out["stats"] = max((float((on(got["stats"][k], w) - w.double()).abs()
+                              .max()) / max(float(w.abs().max()), 1e-3)
+                        for k, w in want["stats"].items()), default=0.0)
+    return out
+
+
+def _loss_rel(got: dict, want: dict) -> float:
+    """The largest rel |x - t| / (|t| + 1e-2) over the terms and steps of
+    two {term: (K,) losses}."""
+    return max(float(((torch.as_tensor(got[k]).double().cpu()
+                       - torch.as_tensor(want[k]).double().cpu()).abs()
+                      / (torch.as_tensor(want[k]).double().cpu().abs()
+                         + 1e-2)).max()) for k in want)
+
+
+def _stacked(rows) -> dict:
+    """[{term: 0-d}] of K steps -> {term: (K,)} on the host."""
+    return {k: torch.stack([r[k].detach().float().cpu() for r in rows])
+            for k in rows[0]}
+
+
+def _host_losses(losses) -> dict:
+    return {k: v.detach().float().cpu() for k, v in losses.items()}
+
+
+def _fmt_rel(rel: dict) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+
+
+def _graph_vs_eager(tag, got_losses, want_losses, got, want, start,
+                    control=None):
+    """The graph's chunk against the same steps taken eagerly on the card
+    from the same state (`start`): GRAPH_LOSS_TOL and GRAPH_STATE_TOL;
+    `control`, a second eager run's (losses, state), printed beside: the
+    card's own run-to-run spread."""
+    rel = _loss_rel(got_losses, want_losses)
+    diff = _state_rel(got, want, start)
+    spread = ""
+    if control is not None:
+        spread = (f"; a second eager run against the first: losses rel "
+                  f"{_loss_rel(control[0], want_losses):.3g}, "
+                  + _fmt_rel(_state_rel(control[1], want, start)))
+    _check(rel <= GRAPH_LOSS_TOL and max(diff.values()) <= GRAPH_STATE_TOL,
+           f"{tag}: graph replays vs eager steps on the card from the same "
+           f"state: losses rel {rel:.3g} <= {GRAPH_LOSS_TOL:g}; the state "
+           f"(_state_rel) <= {GRAPH_STATE_TOL:g}: {_fmt_rel(diff)}{spread}")
+
+
+def _chunk_vs_cpu(tag, got_losses, want_losses, got, want, start):
+    """The graph's chunk on the card against the CPU chunk from the same
+    state (_state_rel's measures), at phase 3b's bounds and phase 13's
+    schedule: the losses of step j at TRAJ_TOLS[j]; each parameter and
+    EMA move at 10% relative L2; Adam's first moment, the chunk's last
+    gradient (beta1 = 0 under TTUR), at phase 3b's 2e-2 for one step's
+    gradient times the schedule's growth to the chunk's last step
+    (TRAJ_TOLS[K - 1] / TRAJ_TOLS[0]), its second moment at 4e-2 (a
+    square doubles the relative error); the spectral u/v at atol 2e-5;
+    the BatchNorm statistics at rel 2e-3 of their scale."""
+    k = len(next(iter(want_losses.values())))
+    for j in range(k):
+        rel = _loss_rel({t: v[j:j + 1] for t, v in got_losses.items()},
+                        {t: v[j:j + 1] for t, v in want_losses.items()})
+        _check(rel <= TRAJ_TOLS[j], f"{tag}: step {j} of the chunk, graph "
+               f"on the card vs the CPU chunk, every loss rel {rel:.3g} <= "
+               f"{TRAJ_TOLS[j]:g}")
+    grad_tol = 2e-2 * TRAJ_TOLS[k - 1] / TRAJ_TOLS[0]
+    bounds = {"params": 0.1, "ema": 0.1, "exp_avg": grad_tol,
+              "exp_avg_sq": 4e-2, "uv": 2e-5, "stats": 2e-3}
+    rel = _state_rel(got, want, start)
+    _check(all(v <= bounds[p] for p, v in rel.items()),
+           f"{tag}: the state after the chunk, card vs CPU, each within "
+           f"its bound: " + ", ".join(f"{p} {v:.3g} <= {bounds[p]:g}"
+                                      for p, v in rel.items()))
+
+
+def small_chunks(P, TS, ST, init) -> None:
+    """Phase 15 (a): make_multi_train_step at the small setting (_chunk_opt,
+    f32). The graph's run takes its WARM_UP_STEPS eager steps; its state is
+    then copied to a second card run and to the CPU, and from there the
+    graph's chunk of SMALL_K on two more batches (the capture, then a
+    replay a step) runs against SMALL_K eager card steps (GRAPH_*_TOL) and
+    the CPU chunk (_chunk_vs_cpu). Then on each other route (the
+    match_kernel 1 kernels, the dW kernel, the fused conv, --remat with
+    --mask_noise and --noise_for_mask, --remat --remat_full) a capture and
+    one replay against the eager step; on every route the capture call
+    launches the route's kernels as the eager step does. init: phase 13's
+    weights (the (G, Corr, D) state dicts and the VGG's)."""
+    from cocosnet_tpu_torch.tools import parity_trajectory as PT
+    batches = PT.make_batches(ST.WARM_UP_STEPS + SMALL_K)
+    warm, chunk = batches[:ST.WARM_UP_STEPS], batches[ST.WARM_UP_STEPS:]
+    counted = counted_entries()
+    routes = {"kernels": ("library", {}, ("attend_shift9",
+                                         "attend_shift9_backward")),
+              "mk1 kernels": ("kernels", dict(match_kernel=1),
+                              ("attend_corr", "attend_corr_backward")),
+              "dW kernel": ("dw all", {}, ("conv3x3_dw",)),
+              "fused conv": ("fused", {}, ("conv3x3_fused",
+                                           "conv3x3_fused_backward")),
+              "--remat --mask_noise --noise_for_mask": (
+                  "library", dict(remat=True, mask_noise=True,
+                                  noise_for_mask=True), ()),
+              "--remat --remat_full": ("library", dict(remat=True,
+                                                       remat_full=True), ())}
+    for route, (switches, kw, kernels) in routes.items():
+        tag = f"(a) small chunk, {route}"
+        kernels = kernels or ("attend_shift9", "attend_shift9_backward")
+        main = route == "kernels"
+        opt = _chunk_opt(**kw)
+        lr = TS.lrs_for_epoch(opt, 1)
+        steps = chunk if main else chunk[:1]
+        t = time.perf_counter()
+        with train_route(switches):
+            nets = _chunk_nets(P, opt, "cuda", init)
+            state = TS.create_train_state(opt, nets)
+            multi = ST.make_multi_train_step(nets)
+            multi(state, warm, lr)                # the eager warm-up steps
+            runs = [_copy_run(P, TS, nets, state, "cuda")
+                    for _ in range(2 if main else 1)]
+            if main:
+                cpu = _copy_run(P, TS, nets, state, "cpu")
+            start = _run_state(nets, state)
+            _zero_counts(counted)
+            got, _ = multi(state, steps, lr)      # the capture, replays
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counted.items()}
+            eager = []
+            for i, (nets2, state2) in enumerate(runs):
+                step = ST.make_train_step(nets2)
+                _zero_counts(counted)
+                losses = _stacked([step(state2, b, lr)[0] for b in steps])
+                torch.cuda.synchronize()
+                if i == 0:
+                    moved = {k: fn.launches for k, fn in counted.items()}
+                eager.append((losses, _run_state(nets2, state2)))
+            del runs, nets2, state2, step
+            n = len(steps)
+            _check(all(launches[k] > 0 for k in kernels)
+                   and {k: n * v for k, v in launches.items()} == moved,
+                   f"{tag}: the capture call launched {launches}; {n} eager "
+                   f"step(s) {moved}; {kernels} among them")
+            got, graph_state = _host_losses(got), _run_state(nets, state)
+            _graph_vs_eager(tag, got, eager[0][0], graph_state, eager[0][1],
+                            start, eager[1] if main else None)
+            del eager
+            if main:
+                cpu_losses, _ = ST.make_multi_train_step(cpu[0])(
+                    cpu[1], steps, lr)
+                _chunk_vs_cpu(tag, got, _host_losses(cpu_losses),
+                              graph_state, _run_state(*cpu), start)
+                del cpu
+        del nets, state, multi, graph_state, start
+        torch.cuda.empty_cache()
+        print(f"     {tag} took {time.perf_counter() - t:.1f} s", flush=True)
+
+
+def _event_chunk(fn, k) -> tuple:
+    """(ms a step by CUDA events, ms a step by the host clock) of fn(), k
+    steps, from a synchronized start to a synchronize."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / k, 1e3 * (time.perf_counter() - t) / k
+
+
+def flagship_chunk(P, cfg, TS, ST, g) -> None:
+    """Phase 15 (b): the flagship mk3 B8 bf16 at K = FLAGSHIP_K in both
+    forms from the same state: the graph's run takes its warm-up steps, is
+    copied to an eager run, and each takes FLAGSHIP_K steps on the same
+    four batches (the graph's: the capture, then a replay a step): every
+    loss finite, the first replayed step's loss terms phase 5's and at
+    rel 2e-3 of the eager step's, the wrappers' launches on the capture
+    call one step's (TRAIN_LAUNCHES), the shift9 launches in the kernel
+    records of one replay one step's; then each form times FLAGSHIP_K
+    more steps (ms a step: CUDA events over the chunk / K, and the host
+    clock), its peak memory, and profiles one replay against one eager
+    step (device busy and idle share), all printed side by side."""
+    opt = train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
+                    batchSize=8, ngf=64, ndf=64)
+    lr = TS.lrs_for_epoch(opt, 1)
+    batches = [{k: v.cuda() for k, v in make_batch(
+        g, 8, 256, 256, opt.semantic_nc).items()}
+        for _ in range(ST.WARM_UP_STEPS + FLAGSHIP_K)]
+    warm, chunk = batches[:ST.WARM_UP_STEPS], batches[ST.WARM_UP_STEPS:]
+    L = sys.modules["cocosnet_tpu_torch.nn.layers"]
+    L.set_compute_dtype(torch.bfloat16)
+    nets = P.Pix2PixNets(opt, seed=0)
+    for net in nets.modules():
+        condition_weights(net, g, "cuda")
+    state = TS.create_train_state(opt, nets)
+    multi = ST.make_multi_train_step(nets)
+    multi(state, warm, lr)
+    info = {}
+    # the eager form first (the graph's pool does not exist yet)
+    nets2, state2 = _copy_run(P, TS, nets, state, "cuda")
+    step = ST.make_train_step(nets2)
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    eager = [step(state2, b, lr)[0] for b in chunk]
+    torch.cuda.synchronize()
+
+    def eager_chunk():
+        for b in chunk:
+            step(state2, b, lr)
+    info["eager"] = dict(zip(("event_ms", "host_ms"),
+                             _event_chunk(eager_chunk, FLAGSHIP_K)))
+    info["eager"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    info["eager"]["resident_gib"] = base
+    rec = profile_call(lambda: step(state2, chunk[0], lr), warmup=False)
+    info["eager"]["busy_ms"] = rec and rec["busy_ms"]
+    info["eager"]["wall_ms"] = rec and rec["wall_ms"]
+    eager = _stacked(eager)
+    del nets2, state2, step
+    torch.cuda.empty_cache()
+
+    counted = counted_entries()
+    _zero_counts(counted)
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    got, vis = multi(state, chunk, lr)           # the capture, replays
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    want = TRAIN_LAUNCHES[(3, "kernels")]
+    _check(launches == want, f"(b) flagship chunk: the capture call launched "
+           f"{launches}, one step's {want}; the replays launch through the "
+           f"graph, past the wrappers' counts")
+    got = _host_losses(got)
+    _check(set(got) == FLAGSHIP_LOSS_KEYS and all(
+        bool(torch.isfinite(v).all()) for v in got.values())
+        and tuple(vis["fake_image"].shape) == (8, 256, 256, 3)
+        and bool(torch.isfinite(vis["fake_image"]).all()),
+        f"(b) flagship chunk of {FLAGSHIP_K}: {len(got)} loss terms, every "
+        f"step's finite; the last fake_image (8, 256, 256, 3) finite")
+    first = {k: v[:1] for k, v in got.items()}
+    rel = _loss_rel(first, {k: v[:1] for k, v in eager.items()})
+    _check(rel <= 2e-3, f"(b) the first replayed step vs the eager step from "
+           f"the same state: every loss rel {rel:.3g} <= 2e-3: " + ", ".join(
+               f"{k} {float(first[k][0]):.5g}/{float(eager[k][0]):.5g}"
+               for k in sorted(first)))
+    info["graph"] = dict(zip(("event_ms", "host_ms"), _event_chunk(
+        lambda: multi(state, chunk, lr), FLAGSHIP_K)))
+    info["graph"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    info["graph"]["resident_gib"] = base
+    rec = profile_call(lambda: multi(state, chunk[:1], lr), warmup=False)
+    _check(rec is not None, "(b) the profiler recorded a replay's kernels")
+    info["graph"]["busy_ms"] = rec["busy_ms"]
+    info["graph"]["wall_ms"] = rec["wall_ms"]
+    one = {"shift9_fwd.cu": want["attend_shift9"],
+           "shift9_bwd.cu": want["attend_shift9_backward"]}
+    seen = {f: rec["calls"][f] for f in one}
+    _check(seen == one, f"(b) one replay's kernel records: shift9_fwd.cu and "
+           f"shift9_bwd.cu launched {seen}, one step's {one} (phase 5)")
+    for form in ("graph", "eager"):
+        r = info[form]
+        r["idle"] = 1 - r["busy_ms"] / r["wall_ms"] if r["busy_ms"] else None
+    print(f"(b) flagship mk3 B8 bf16, K = {FLAGSHIP_K}, graph | eager: "
+          + "; ".join(
+              f"{what} {_ms(info['graph'][k])} | {_ms(info['eager'][k])}"
+              for what, k in (
+                  (f"ms a step, CUDA events over the chunk / {FLAGSHIP_K}",
+                   "event_ms"),
+                  ("ms a step, host clock", "host_ms"),
+                  ("one step's device busy ms", "busy_ms"),
+                  ("its host ms", "wall_ms"), ("idle share", "idle"),
+                  ("peak GiB", "peak_gib"),
+                  ("GiB resident before", "resident_gib"))), flush=True)
+    del nets, state, multi, batches, vis
+    L.set_compute_dtype(None)
+    torch.cuda.empty_cache()
+
+
+def chunk_twin() -> None:
+    """Phase 15 (c): the train twin (cli/train.py) at --steps_per_dispatch
+    FLAGSHIP_K on phase 7's flags (batch 8, bf16 policy) and a synthetic
+    ADE20k tree of 40 training photos: 5 steps an epoch, a chunk of 4 (two
+    warm-up steps, the capture, two replays) and a tail of one step; a
+    `latest` save due after 16 images waits for the chunk's end (32), with
+    iter.txt there; then --continue_train for a second epoch (no `latest`
+    save inside it), captured anew on the loaded state. The wrappers count
+    the eager steps and the capture call: 4 steps' launches an epoch."""
+    import contextlib
+    import io
+    import shutil
+    import statistics
+    import tempfile
+    from cocosnet_tpu_torch.cli import train as TTRAIN
+    from cocosnet_tpu_torch.data import synthetic as SYN
+    L = sys.modules["cocosnet_tpu_torch.nn.layers"]
+    base = tempfile.mkdtemp(prefix="cocosnet_chunk_twin_")
+    try:
+        root = os.path.join(base, "ade")
+        SYN.make_ade20k_tree(root, n_train=40, n_val=1)
+        ck = os.path.join(base, "checkpoints")
+        flags = ["--name", "chunk", "--dataset_mode", "ade20k", "--dataroot",
+                 root, "--use_attention", "--maskmix",
+                 "--warp_mask_losstype", "direct", "--PONO", "--PONO_C",
+                 "--checkpoints_dir", ck, "--output_dir",
+                 os.path.join(base, "output"), "--nThreads", "4",
+                 "--batchSize", "8", "--niter", "1", "--niter_decay", "0",
+                 "--weight_mask", "100.0", "--use_ema",
+                 "--vgg_normal_correct", "--save_epoch_freq", "1",
+                 "--print_freq", "8", "--display_freq", "1000",
+                 "--save_latest_freq", "16",
+                 "--steps_per_dispatch", str(FLAGSHIP_K)]
+        counted = counted_entries()
+        per_step = TRAIN_LAUNCHES[(3, "kernels")]
+        step_s = []
+        for name, extra in (("chunked", []),
+                            ("resumed", ["--continue_train", "--niter",
+                                         "2", "--save_latest_freq", "0"])):
+            _zero_counts(counted)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                run = TTRAIN.main(flags + extra)
+            torch.cuda.synchronize()
+            text = out.getvalue()
+            print(text, end="", flush=True)
+            launches = {k: fn.launches for k, fn in counted.items()}
+            want = {k: 4 * n for k, n in per_step.items()}
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith("(epoch:")]
+            _check(run.g_steps == 5 and launches == want
+                   and len(lines) == 5,
+                   f"train twin --steps_per_dispatch {FLAGSHIP_K} ({name}): "
+                   f"{run.g_steps} steps, a loss line each ({len(lines)}); "
+                   f"the wrappers counted 2 warm-up steps, the capture call "
+                   f"and the tail step: {launches} == {want}")
+            _check(all(v == v and abs(v) < float("inf")
+                       for v in run.losses.values()),
+                   f"train twin ({name}): last losses finite: " + ", ".join(
+                       f"{k} {v:.4g}" for k, v in sorted(run.losses.items())))
+            step_s += run.step_seconds[1:]
+            if name == "chunked":
+                out_lines = text.splitlines()
+                at = [i for i, ln in enumerate(out_lines)
+                      if ln.startswith("saving the latest model")]
+                first = out_lines[at[0]:at[0] + 2] if at else []
+                _check(first[:1] == ["saving the latest model (epoch 1, "
+                                     "total_steps 32)"]
+                       and first[1].startswith("Saved current iteration "
+                                               "count"),
+                       f"train twin: the `latest` save due at 16 images "
+                       f"made at the chunk's end, iter.txt with it: "
+                       f"{first}")
+        with open(os.path.join(ck, "chunk", "iter.txt")) as f:
+            record = f.read().split()
+        _check(run.state.step == 10 and record == ["3", "0"],
+               f"--continue_train resumed at epoch 2 and took its chunk: "
+               f"step {run.state.step} == 10, iter.txt {record} == "
+               f"['3', '0']")
+        print(f"train twin --steps_per_dispatch {FLAGSHIP_K} batch 8: "
+              f"{statistics.median(step_s):.4f} s/step (median of "
+              f"{len(step_s)} steps after each run's first: a chunk's "
+              f"seconds over its steps, the tail step its own; host clock, "
+              f"the loader's wait included)", flush=True)
+    finally:
+        L.set_compute_dtype(None)
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def nccl_chunk(P, TS, ST, init) -> None:
+    """Phase 15 (d): phase 11's one-rank NCCL group (the backend a card a
+    rank takes) takes a chunk of SMALL_K through the graph at the small
+    setting, against the same steps eagerly in the group (GRAPH_*_TOL);
+    mesh.check_capturable passes it."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cocosnet_tpu_torch import mesh as M
+    from cocosnet_tpu_torch.tools import parity_trajectory as PT
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    M.init_process_group(M.backend_for(torch.device("cuda")),
+                         "file://" + os.path.join(tmp, "nccl"), 0, 1, 60)
+    try:
+        M.set_global_mesh(M.create_mesh(1, 1))
+        M.check_capturable()
+        opt = _chunk_opt()
+        lr = TS.lrs_for_epoch(opt, 1)
+        batches = PT.make_batches(ST.WARM_UP_STEPS + SMALL_K)
+        warm, chunk = batches[:ST.WARM_UP_STEPS], batches[ST.WARM_UP_STEPS:]
+        nets = _chunk_nets(P, opt, "cuda", init)
+        state = TS.create_train_state(opt, nets)
+        multi = ST.make_multi_train_step(nets)
+        multi(state, warm, lr)
+        nets2, state2 = _copy_run(P, TS, nets, state, "cuda")
+        start = _run_state(nets, state)
+        got, _ = multi(state, chunk, lr)
+        step = ST.make_train_step(nets2)
+        want = _stacked([step(state2, b, lr)[0] for b in chunk])
+        _check(dist.get_backend() == "nccl", "(d) the group is NCCL's")
+        _graph_vs_eager(f"(d) one-rank NCCL group, chunk of {SMALL_K}",
+                        _host_losses(got), want, _run_state(nets, state),
+                        _run_state(nets2, state2), start)
+        del nets, state, multi, nets2, state2
+    finally:
+        M.shutdown()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def chunk_graphs(P, cfg, TS, ST) -> None:
+    """Phase 15: --steps_per_dispatch, make_multi_train_step's chunk as a
+    CUDA graph: (a) small_chunks, (b) flagship_chunk, (c) chunk_twin,
+    (d) nccl_chunk."""
+    from cocosnet_tpu_torch.tools import parity_trajectory as PT
+    init = (PT.make_init_sd(0), PT.make_vgg_sd(7))
+    t = time.perf_counter()
+    small_chunks(P, TS, ST, init)
+    print(f"phase 15 (a) took {time.perf_counter() - t:.0f} s", flush=True)
+    t = time.perf_counter()
+    flagship_chunk(P, cfg, TS, ST, torch.Generator().manual_seed(15))
+    print(f"phase 15 (b) took {time.perf_counter() - t:.0f} s", flush=True)
+    t = time.perf_counter()
+    chunk_twin()
+    print(f"phase 15 (c) took {time.perf_counter() - t:.0f} s", flush=True)
+    t = time.perf_counter()
+    nccl_chunk(P, TS, ST, init)
+    print(f"phase 15 (d) took {time.perf_counter() - t:.0f} s", flush=True)
+
+
 def kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g, g_widths) -> dict:
     """Phase 2: each kernel against its plain version at the shapes of its
     paths, timed; the inputs drawn from g, those of the shift9 backward at
@@ -3474,18 +4024,18 @@ def main() -> None:
     _phase_done(4, t_start)
     # phases 5 and 5b: flagship-width training, bf16 policy
     runs["train step"] = flagship_training(P, cfg, TS, ST, g, 3, "kernels",
-                                           3, phase5)
-    # (each route times 3 steps: 5 before phase 10 came, and at mk3 before
-    # phases 13 and 14 came: the script's time)
+                                           2, phase5)
+    # (each route times 2 steps: 5 before phase 10 came, and 3 before
+    # phase 15 came: the script's time)
     for route in ("library", "kernels"):
         with train_route(route):
             runs[f"match_kernel 1 train step, {route} route"] = \
-                flagship_training(P, cfg, TS, ST, g, 1, route, 3)
+                flagship_training(P, cfg, TS, ST, g, 1, route, 2)
     # phases 5c and 5d: the flagship train step on its two conv routes
     for route, path in (("dw", "train step, COCOSNET_PALLAS_DW=1"),
                         ("fused", "train step, COCOSNET_FUSED_CONV_TRAIN=1")):
         with train_route(route):
-            runs[path] = flagship_training(P, cfg, TS, ST, g, 3, route, 3)
+            runs[path] = flagship_training(P, cfg, TS, ST, g, 3, route, 2)
     L.set_compute_dtype(None)
     _phase_done(5, t_start)
 
@@ -3555,8 +4105,8 @@ def main() -> None:
     runs.update(branch_runs)
     _phase_done(12, t_start)
 
-    # phase 13: the training trajectory (card against CPU, then 50 steps of
-    # three routes on the card)
+    # phase 13: the training trajectory (card against CPU, then TRAJ_STEPS
+    # steps of three routes on the card)
     t13 = time.perf_counter()
     runs["trajectory, kernels route (4 steps)"] = trajectory()
     print(f"phase 13 took {time.perf_counter() - t13:.0f} s", flush=True)
@@ -3570,6 +4120,13 @@ def main() -> None:
     tool_twins()
     print(f"phase 14 took {time.perf_counter() - t14:.0f} s", flush=True)
     _phase_done(14, t_start)
+
+    # phase 15: --steps_per_dispatch, the chunk of fused steps as one CUDA
+    # graph replayed a step at a time
+    t15 = time.perf_counter()
+    chunk_graphs(P, cfg, TS, ST)
+    print(f"phase 15 took {time.perf_counter() - t15:.0f} s", flush=True)
+    _phase_done(15, t_start)
 
     # per kernel: its source, the TPU kernel it replaces, and the main path
     # whose run counts its launches (the path it came in with)

@@ -16,8 +16,20 @@ D-only step on the last fake where i % D_steps_per_G != 0
 the learning rates of train.state.lrs_for_epoch each epoch, and a NaN loss
 saves `nan_debug` and stops. --continue_train --which_epoch resumes from
 that checkpoint and from iter.txt. Runs on the GPU; --platform cpu runs
-the kernels' plain versions on the CPU. --steps_per_dispatch > 1 (the JAX
-package's multi-step dispatch) is refused.
+the kernels' plain versions on the CPU. Under --noise_for_mask the steps
+are rebuilt when the epoch passes --mask_epoch (pix2pix.set_noise_phase).
+
+--steps_per_dispatch K > 1, as train.py:121-260: the loader's batches
+gather into chunks of K, each run by train.steps.make_multi_train_step (on
+the card one CUDA-graph replay a step, after two eager warm-up steps in
+the first chunk of each noise phase; on the CPU K eager steps), with one
+host copy of the chunk's stacked losses and one NaN check; the loss lines,
+visuals and events still come a step at a time, from the chunk's rows (the
+visuals of a chunk are its last step's); a `latest` save that falls inside
+a chunk is made at its boundary, with iter.txt counting the chunk's end;
+the epoch's tail shorter than a chunk runs a step at a time; with
+--profile_dir the third chunk is traced; --D_steps_per_G > 1 prints
+train.py's message and runs K = 1.
 
 Parallelism, as train.py's mesh (cocosnet_tpu_torch/mesh.py): every
 visible card joins the data axis unless --mesh_data says how many;
@@ -53,7 +65,7 @@ from cocosnet_tpu_torch.train import checkpoints as C
 from cocosnet_tpu_torch.train import state as S
 from cocosnet_tpu_torch.train import steps as ST
 from cocosnet_tpu_torch.utils import visuals as V
-from cocosnet_tpu_torch.utils.iter_counter import TrainProgress
+from cocosnet_tpu_torch.utils.iter_counter import StepEvents, TrainProgress
 from cocosnet_tpu_torch.utils.logging import print_current_errors
 from cocosnet_tpu_torch.utils.profiling import Throughput, maybe_trace
 
@@ -63,23 +75,16 @@ class TrainRun:
     """What a run did: its G steps and D-only steps, the host seconds of
     each iteration (from the losses of the one before on the host, or the
     epoch's start, to its own: the logging and saving between them, the
-    wait for the loader, the copy and the device's work), the last losses,
-    the nets and the train state it ended with."""
+    wait for the loader, the copy and the device's work; under
+    --steps_per_dispatch K each step of a chunk counts the chunk's seconds
+    divided by K), the last losses, the nets and the train state it ended
+    with."""
     g_steps: int
     d_steps: int
     step_seconds: List[float]
     losses: Dict[str, float]
     nets: P.Pix2PixNets
     state: S.TrainState
-
-
-def check_loop_ported(opt) -> None:
-    """Raises on the loop options the twin does not run: it takes one step
-    a dispatch."""
-    if opt.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            f"not ported yet: {{'steps_per_dispatch': "
-            f"{opt.steps_per_dispatch}}}")
 
 
 def parse(argv):
@@ -90,7 +95,6 @@ def main(argv=None):
     """The run in this process (its TrainRun), or in the workers the mesh
     flags ask for (None: rank 0 printed and wrote what it does)."""
     opt = parse(argv)
-    check_loop_ported(opt)
     return common.run_job("cocosnet_tpu_torch.cli.train:train_loop", argv, opt)
 
 
@@ -125,8 +129,11 @@ def train_loop(opt, device, mesh: M.Mesh) -> TrainRun:
         # every rank read the same files; rank 0's state is the run's
         M.broadcast_from_rank0(_state_tensors(nets, state))
 
-    train_step = ST.make_train_step(nets)
-    d_only_step = ST.make_d_step(nets) if opt.D_steps_per_G > 1 else None
+    spd = opt.steps_per_dispatch
+    if spd > 1 and opt.D_steps_per_G > 1:
+        print("steps_per_dispatch > 1 is unsupported with D_steps_per_G > 1;"
+              " running per-step dispatch")
+        spd = 1
     throughput = Throughput()
     save_root = common.save_root(opt)
     run = TrainRun(g_steps=0, d_steps=0, step_seconds=[], losses={},
@@ -144,13 +151,51 @@ def train_loop(opt, device, mesh: M.Mesh) -> TrainRun:
             f"state saved as 'nan_debug' for inspection; rerun with "
             f"--compute_dtype f32 and/or a lower --lr")
 
+    def handle_events(events, epoch, batch, visuals):
+        if events.print_losses and rank0:
+            print_current_errors(
+                opt, epoch, progress.epoch_iter,
+                {**run.losses, "img/s": throughput.step(opt.batchSize)},
+                progress.time_per_img)
+        if events.display_visuals and visuals:
+            batch, visuals = _global_visuals(batch, visuals)
+            try:
+                if rank0:
+                    _save_visuals(opt, batch, visuals, epoch,
+                                  progress.images_seen, save_root)
+            except OSError as err:
+                print(err)
+        if events.save_latest:
+            print(f"saving the latest model (epoch {epoch}, "
+                  f"total_steps {progress.images_seen})")
+            save("latest")
+            progress.save_record()
+
+    def record(names, values, seconds, epoch):
+        """The steps' host rows of losses: NaN check, TrainRun."""
+        run.step_seconds += [seconds / len(values)] * len(values)
+        if bool(torch.isnan(values).any()):
+            nan_bail(epoch)
+        run.losses = dict(zip(names, values[-1].tolist()))
+
+    phase = None
     last_fake = None
     for epoch in progress.epochs():
         progress.begin_epoch(epoch)
+        if phase is None or P.noise_phase(opt, epoch) != phase:
+            # the --noise_for_mask phase changes the step (train.py's
+            # get_steps): rebuilt, and on the card recaptured
+            phase = P.set_noise_phase(nets, epoch)
+            train_step = ST.make_train_step(nets)
+            d_only_step = (ST.make_d_step(nets) if opt.D_steps_per_G > 1
+                           else None)
+            multi_step = ST.make_multi_train_step(nets) if spd > 1 else None
         lr = S.lrs_for_epoch(opt, epoch)  # (lr_G, lr_D)
+        pending = []    # (arrays, host batch) awaiting a full chunk
         t0 = time.perf_counter()
-        for i, batch in enumerate(dataloader):
-            arrays, _ = to_device(batch, device)
+
+        def one_step(i, arrays, batch):
+            nonlocal last_fake, t0
             events = progress.step()
             trace_this = bool(opt.profile_dir) and epoch == 1 and i == 2
             with maybe_trace(opt.profile_dir, trace_this):
@@ -166,30 +211,48 @@ def train_loop(opt, device, mesh: M.Mesh) -> TrainRun:
                     run.g_steps += 1
             # one copy to the host for all the losses; it waits for the step
             values = torch.stack(list(metrics.values())).float().cpu()
-            run.step_seconds.append(time.perf_counter() - t0)
+            record(list(metrics), values[None], time.perf_counter() - t0,
+                   epoch)
             t0 = time.perf_counter()
-            if bool(torch.isnan(values).any()):
-                nan_bail(epoch)
-            run.losses = dict(zip(metrics, values.tolist()))
+            handle_events(events, epoch, batch, visuals)
 
-            if events.print_losses and rank0:
-                print_current_errors(
-                    opt, epoch, progress.epoch_iter,
-                    {**run.losses, "img/s": throughput.step(opt.batchSize)},
-                    progress.time_per_img)
-            if events.display_visuals and visuals:
-                batch, visuals = _global_visuals(batch, visuals)
-                try:
-                    if rank0:
-                        _save_visuals(opt, batch, visuals, epoch,
-                                      progress.images_seen, save_root)
-                except OSError as err:
-                    print(err)
-            if events.save_latest:
-                print(f"saving the latest model (epoch {epoch}, "
-                      f"total_steps {progress.images_seen})")
-                save("latest")
-                progress.save_record()
+        def run_chunk(chunk_i):
+            nonlocal pending, t0
+            chunk, pending = pending, []
+            trace_this = bool(opt.profile_dir) and epoch == 1 \
+                and chunk_i == 2
+            with maybe_trace(opt.profile_dir, trace_this):
+                metrics, visuals = multi_step(state, [a for a, _ in chunk],
+                                              lr)
+            # one host copy and one NaN check a chunk
+            values = torch.stack(list(metrics.values()), 1).float().cpu()
+            record(list(metrics), values, time.perf_counter() - t0, epoch)
+            t0 = time.perf_counter()
+            run.g_steps += len(chunk)
+            # a `latest` save inside the chunk waits for its boundary: the
+            # state holds the chunk's end, and iter.txt must count it
+            want_save = False
+            for j in range(len(chunk)):
+                run.losses = dict(zip(metrics, values[j].tolist()))
+                events = progress.step()
+                want_save = want_save or events.save_latest
+                handle_events(dataclasses.replace(events, save_latest=False),
+                              epoch, chunk[-1][1], visuals)
+            if want_save:
+                handle_events(StepEvents(save_latest=True), epoch, None, {})
+
+        for i, batch in enumerate(dataloader):
+            arrays, _ = to_device(batch, device)
+            if multi_step is not None:
+                pending.append((arrays, batch))
+                if len(pending) == spd:
+                    run_chunk(i // spd)
+                continue
+            one_step(i, arrays, batch)
+        # the epoch's tail shorter than a chunk: a step at a time
+        for arrays, batch in pending:
+            one_step(-1, arrays, batch)
+        pending = []
         progress.end_epoch()
         if epoch % opt.save_epoch_freq == 0 or epoch == progress.final_epoch:
             print(f"saving the model at the end of epoch {epoch}, "
@@ -204,8 +267,9 @@ def train_loop(opt, device, mesh: M.Mesh) -> TrainRun:
 def _state_tensors(nets, state) -> List[torch.Tensor]:
     """Every tensor of the run's state on the nets' device: the nets'
     parameters and buffers (spectral u/v), the EMA shadows and the
-    optimizers' moments (Adam keeps its step counts on the host; they are
-    equal on every rank)."""
+    optimizers' moments, and on the card their step counts (capturable
+    Adam keeps them there; on the CPU they stay on the host, equal on
+    every rank)."""
     out = [t for net in nets.modules() for t in net.state_dict().values()]
     out += list((state.ema or {}).values())
     for o in (state.opt_g, state.opt_d):

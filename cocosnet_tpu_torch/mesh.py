@@ -81,6 +81,17 @@ def world() -> tuple[int, int]:
     return 0, 1
 
 
+def check_capturable() -> None:
+    """Raises where the job's collectives cannot be captured in a CUDA
+    graph: a job of more than one rank on gloo (NCCL's can)."""
+    if world()[1] > 1 and dist.get_backend() != "nccl":
+        raise RuntimeError(
+            f"--steps_per_dispatch > 1 on the card captures the train step "
+            f"as a CUDA graph, and a {dist.get_backend()} job's collectives "
+            f"cannot be captured: run it on NCCL (a card a rank) or with "
+            f"--steps_per_dispatch 1")
+
+
 def create_mesh(data: int = 0, model: int = 1) -> Mesh:
     """The (data, model) layout over every rank of the job; data = 0 puts
     all of them on the data axis. Every rank of the job must call it, in

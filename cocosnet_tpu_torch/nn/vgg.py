@@ -35,8 +35,19 @@ def vgg_preprocess(x: torch.Tensor,
     if vgg_normal_correct:
         x = (x + 1.0) / 2.0
     bgr = x.flip(-1)
-    mean = torch.tensor(_VGG_MEAN_BGR, dtype=x.dtype, device=x.device)
-    return (bgr - mean) * 255.0
+    return (bgr - _mean_bgr(x.dtype, x.device)) * 255.0
+
+
+_MEANS = {}
+
+
+def _mean_bgr(dtype, device) -> torch.Tensor:
+    """_VGG_MEAN_BGR as a tensor on `device`, made at its first use: a
+    CUDA graph of the train step cannot capture the copy from the host."""
+    key = (dtype, device)
+    if key not in _MEANS:
+        _MEANS[key] = torch.tensor(_VGG_MEAN_BGR, dtype=dtype, device=device)
+    return _MEANS[key]
 
 
 class VGG19Features(tnn.Module):

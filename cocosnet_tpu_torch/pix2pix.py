@@ -114,6 +114,28 @@ class Pix2PixNets:
                 net.train(flag)
 
 
+def noise_phase(opt: Options, epoch: int) -> bool:
+    """Whether training epoch `epoch` is past --mask_epoch under
+    --noise_for_mask (train.py's noise phase)."""
+    return bool(opt.noise_for_mask and epoch > opt.mask_epoch)
+
+
+def set_noise_phase(nets: Pix2PixNets, epoch: int) -> bool:
+    """The nets' options for training epoch `epoch`, as train.py builds
+    its nets for each noise phase: opt.epoch is mask_epoch + 1 in the
+    noise phase and 1 before it, on the nets and on every module holding
+    the options (the correspondence net reads it: models/correspondence.
+    uses_ref_noise). Returns noise_phase(opt, epoch)."""
+    phase = noise_phase(nets.opt, epoch)
+    opt = nets.opt.replace(epoch=nets.opt.mask_epoch + 1 if phase else 1)
+    nets.opt = opt
+    for net in nets.modules():
+        for m in net.modules():
+            if isinstance(getattr(m, "opt", None), Options):
+                m.opt = opt
+    return phase
+
+
 def cbn_input(opt: Options, warp_out: torch.Tensor,
               input_semantics: torch.Tensor) -> torch.Tensor:
     """SPADE conditioning per --CBN_intype."""

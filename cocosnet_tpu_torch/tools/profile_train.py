@@ -87,8 +87,7 @@ def segment_fns(opt, nets, state, batch, device):
         def step():
             for p, z in zip(params, zeros):
                 p.grad = z
-            for group in optimizer.param_groups:
-                group["lr"] = rate
+            S.set_lr(optimizer, rate)
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
         return step

@@ -9,7 +9,8 @@ holding each net's state dict under the reference's file names
 - with --use_ema, net_G_ema.pth and net_netCorr_ema.pth (the EMA shadows in
   place of the parameters, train.state.ema_state_dicts);
 - optimizer.pth: both Adam states, the step counter and the state of the
-  noise generator.
+  noise generator. A card run's Adam keeps its step counts and rate on the
+  device; train.state.load_optimizer loads either kind into either.
 The spectral weight_u / weight_v and the BatchNorms' running_mean /
 running_var / num_batches_tracked are buffers, so they travel in the state
 dicts, under the reference's names. An inference checkpoint, `state_infer_<label>/` (`save_inference`,
@@ -146,11 +147,15 @@ def load_state(opt, state: S.TrainState, nets, label: str) -> str:
                     if net == name:
                         shadow.copy_(sd[param])
     saved = _load(os.path.join(path, OPTIMIZER_FILE), nets.device)
-    state.opt_g.load_state_dict(saved["opt_g"])
-    state.opt_d.load_state_dict(saved["opt_d"])
+    S.load_optimizer(state.opt_g, saved["opt_g"])
+    S.load_optimizer(state.opt_d, saved["opt_d"])
+    state.lrs = None    # the saved rates: the next step writes its own
     state.step = int(saved["step"])
-    if "noise" in saved:
-        state.noise.set_state(saved["noise"].cpu())
+    noise = saved.get("noise")
+    if noise is not None and noise.numel() == state.noise.get_state().numel():
+        # a state of the other kind of generator (the CPU's or the card's)
+        # leaves this run's seeded stream
+        state.noise.set_state(noise.cpu())
     return path
 
 

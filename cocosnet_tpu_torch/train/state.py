@@ -10,7 +10,14 @@ pix2pix_trainer.py:105-125):
 - no_TTUR: betas (beta1, beta2), both sides at the rates lrs_for_epoch
   gives.
 - linear decay after epoch niter (lr_for_epoch / lrs_for_epoch); the train
-  step sets each optimizer's rate from the lr it is handed.
+  step sets each optimizer's rate from the lr it is handed (set_lrs).
+- On a CUDA device both optimizers are capturable (their step counts live
+  on the device) and each rate is a 0-d device tensor in its parameter
+  group, written in place outside any graph, so that a CUDA graph of the
+  step (train/steps.make_multi_train_step) holds them; every step of a
+  card run, captured or not, uses these optimizers, so a chunk and its
+  single steps do the same arithmetic. On the CPU, Adam is torch's default
+  with a float rate.
 - EMA (generator.py:259-287): shadow = beta * shadow + (1 - beta) * p over
   the G and Corr parameters, after each G update.
 - The domain classifier's parameters (--weight_domainC with --domain_rela)
@@ -80,20 +87,72 @@ class TrainState:
         b1, b2 = (opt.beta1, opt.beta2) if opt.no_TTUR else (0.0, 0.9)
         lr_g, lr_d = (float(x) for x in lrs_for_epoch(opt, 1))
         self.g_params = g_named_parameters(nets)
-        self.opt_g = torch.optim.Adam(list(self.g_params.values()), lr=lr_g,
-                                      betas=(b1, b2), eps=1e-3)
-        self.opt_d = torch.optim.Adam(d_parameters(nets), lr=lr_d,
-                                      betas=(b1, b2), eps=1e-8)
+        self.opt_g = _adam(list(self.g_params.values()), lr_g, (b1, b2),
+                           1e-3, nets.device)
+        self.opt_d = _adam(d_parameters(nets), lr_d, (b1, b2), 1e-8,
+                           nets.device)
         self.ema: Optional[Dict[str, torch.Tensor]] = None
         if opt.use_ema:
             self.ema = {k: p.detach().clone()
                         for k, p in self.g_params.items()}
+        self.lrs = (lr_g, lr_d)     # the rates the optimizers hold, or None
         self.step = 0
         self.noise = torch.Generator(nets.device).manual_seed(opt.seed)
 
 
+def _adam(params, lr: float, betas, eps: float,
+          device: torch.device) -> torch.optim.Adam:
+    if device.type == "cuda":
+        return torch.optim.Adam(params, lr=torch.tensor(lr, device=device),
+                                betas=betas, eps=eps, capturable=True)
+    return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+
+
 def create_train_state(opt: Options, nets) -> TrainState:
     return TrainState(opt, nets)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every parameter group of `optimizer` at rate `lr`: the device
+    tensor's value in place (outside a graph: a fill inside one would
+    record the value), or the float on the CPU."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
+
+
+def set_lrs(state: TrainState, lr) -> None:
+    """lr: (lr_G, lr_D), as lrs_for_epoch gives them, written where they
+    differ from the rates the optimizers hold: once an epoch."""
+    lrs = (float(lr[0]), float(lr[1]))
+    if lrs != state.lrs:
+        set_lr(state.opt_g, lrs[0])
+        set_lr(state.opt_d, lrs[1])
+        state.lrs = lrs
+
+
+def load_optimizer(optimizer: torch.optim.Optimizer, saved: Dict) -> None:
+    """optimizer.load_state_dict(saved), keeping this run's own kind of
+    Adam: a state saved on the card loads on the CPU and the other way
+    round. The group's rate object stays (a device tensor takes the saved
+    value in place) and so does its `capturable`; the step counts move to
+    the parameters' device where capturable, to the host otherwise."""
+    kept = [(g["lr"], g["capturable"]) for g in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, (lr, capturable) in zip(optimizer.param_groups, kept):
+        rate = float(group["lr"])
+        group["lr"], group["capturable"] = lr, capturable
+        if torch.is_tensor(lr):
+            lr.fill_(rate)
+        else:
+            group["lr"] = rate
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(
+                    p.device if capturable else "cpu", torch.float32)
 
 
 @torch.no_grad()

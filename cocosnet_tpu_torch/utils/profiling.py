@@ -120,6 +120,8 @@ def host_ms(fn, runs: int = TIMED_RUNS, warmups: int = 1) -> float:
 # chip_smoke.py's CUDA graphs, every record of a session of a few dozen
 # kernels. The burst takes the loss; `head_lost` counts what it lost.
 PAD_LAUNCHES = 512
+# profiles of a stage taken before measure_stage gives up on the profiler
+PROFILE_TRIES = 3
 PAD_KERNEL = "digamma"
 
 
@@ -594,7 +596,9 @@ def measure_stage(name: str, fn, iters: int, cuda: bool) -> dict:
     time by kernel family (kernel_breakdown). On the card the profile must
     record each launch of a hand-written kernel that the wrappers counted:
     the profiler can drop records, and a dropped record must not read as
-    zero, so a profile that misses one, or records no kernel, raises. The
+    zero, so a profile that misses one, or records no kernel, is taken
+    again, up to PROFILE_TRIES in all, and then raises (a session of a
+    VGG19 tower late in chip_smoke.py once recorded no kernel at all). The
     counting call warms the stage up for the timed ones, and these for the
     profiled one; `wall_s` is the host time the stage took in all."""
     t = time.perf_counter()
@@ -606,14 +610,17 @@ def measure_stage(name: str, fn, iters: int, cuda: bool) -> dict:
              for k, e in entries.items()}
     ms = (time_ms if cuda else host_ms)(fn, iters, warmups=1)
     prof = None
-    if cuda:
+    for attempt in range(PROFILE_TRIES if cuda else 0):
         prof = kernel_breakdown(fn, warmup=False)
         missed = ("no device kernel" if prof is None
                   else missed_calls(prof, launches))
-        if missed:
-            raise RuntimeError(
-                f"{name}: the profile missed hand-written launches "
-                f"(recorded, launched): {missed}")
+        if not missed:
+            break
+        msg = (f"{name}: the profile missed hand-written launches "
+               f"(recorded, launched): {missed}")
+        if attempt + 1 == PROFILE_TRIES:
+            raise RuntimeError(msg)
+        print(msg + "; profiling it again", flush=True)
     return dict(name=name, ms=ms, wall_s=time.perf_counter() - t,
                 gflop=(flops["library"] + flops["kernels"]) / 1e9,
                 kernel_gflop=flops["kernels"] / 1e9,

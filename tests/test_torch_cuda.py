@@ -759,3 +759,101 @@ def test_remat_steps_on_the_card_equal_the_plain_steps(gen, monkeypatch,
     plain = _run(monkeypatch, device="cuda", steps=1)
     check_same_steps(_run(monkeypatch, device="cuda", steps=1, **flags),
                      plain, rel=1e-4, grad_rel=1e-4, only=STATE)
+
+
+@pytest.mark.parametrize("route", [
+    "shift9", "mk1 kernels", "dW kernel", "fused conv", "remat",
+    "remat_full", "noise"])
+def test_chunk_graph_replays_the_eager_steps(gen, monkeypatch, tmp_path,
+                                             route):
+    """train.steps.make_multi_train_step on the card (chip_smoke.py phase
+    15 (a) at 64 px, ngf 64, ndf 16, label_nc 12, batch 2, f32, weights at
+    unit signal scale) on each training route: a first chunk of 2 runs the
+    eager warm-up steps; its state, saved by train.checkpoints (Adam's
+    step counts on the card), loads into a second run; then the graph's
+    chunk of 2 (the capture, two replays) against two eager steps of the
+    second run: the route's kernels launched on the capture call as on an
+    eager step, every loss at rel 1e-5, the parameters' moves at 1e-2
+    relative L2 (the card's reductions are not deterministic run to run:
+    phase 15 measured up to 5e-3 between two eager runs of two steps),
+    the state's step counter and the noise generator carried on."""
+    from cocosnet_tpu_torch import config as TCFG
+    from cocosnet_tpu_torch import pix2pix as TP
+    from cocosnet_tpu_torch.models import correspondence as CR
+    from cocosnet_tpu_torch.nn import layers as L
+    from cocosnet_tpu_torch.train import checkpoints as CK
+    from cocosnet_tpu_torch.train import state as TS
+    from cocosnet_tpu_torch.train import steps as ST
+    from torch_fixtures import condition
+    env, kw, kernels = {
+        "shift9": ({}, {}, (S.attend_shift9, S.attend_shift9_backward)),
+        "mk1 kernels": ({CR.MK1_TRAIN_ENV: "1"}, dict(match_kernel=1),
+                        (K.attend_corr, K.attend_corr_backward)),
+        "dW kernel": ({C.DW_ENV: "all"}, {}, (C.conv3x3_dw,)),
+        "fused conv": ({L.FUSED_TRAIN_ENV: "1"}, {},
+                       (C.conv3x3_fused, C.conv3x3_fused_backward)),
+        "remat": ({}, dict(remat=True), (S.attend_shift9,)),
+        "remat_full": ({}, dict(remat=True, remat_full=True),
+                       (S.attend_shift9,)),
+        "noise": ({}, dict(mask_noise=True, noise_for_mask=True),
+                  (S.attend_shift9,))}[route]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    opt = TCFG.test_defaults(**{**dict(
+        dataset_mode="ade20k", label_nc=12, contain_dontcare_label=True,
+        crop_size=64, load_size=64, batchSize=2, ngf=64, ndf=16,
+        use_attention=True, maskmix=True, PONO=True, PONO_C=True,
+        warp_mask_losstype="direct", weight_mask=100.0, use_ema=True,
+        vgg_normal_correct=True, compute_dtype="f32", isTrain=True,
+        checkpoints_dir=str(tmp_path), name="chunk"), **kw})
+
+    def batch():
+        return {"label": torch.randint(0, 13, (2, 64, 64, 1),
+                                       generator=gen).float().cuda(),
+                "image": (torch.rand(2, 64, 64, 3, generator=gen) * 2
+                          - 1).cuda(),
+                "ref": (torch.rand(2, 64, 64, 3, generator=gen) * 2
+                        - 1).cuda(),
+                "label_ref": torch.randint(0, 13, (2, 64, 64, 1),
+                                           generator=gen).float().cuda(),
+                "self_ref": torch.ones(2, device="cuda")}
+
+    def run():
+        nets = TP.Pix2PixNets(opt, device="cuda")
+        for i, net in enumerate(nets.modules()):
+            condition(net, i)
+        return nets, TS.create_train_state(opt, nets)
+
+    warm, chunk = [batch(), batch()], [batch(), batch()]
+    lr = TS.lrs_for_epoch(opt, 1)
+    nets, state = run()
+    multi = ST.make_multi_train_step(nets)
+    multi(state, warm, lr)
+    CK.save_state(opt, state, nets, "warm")
+    nets2, state2 = run()
+    CK.load_state(opt, state2, nets2, "warm")
+    assert state2.step == state.step == 2
+    assert all(st["step"].is_cuda for st in state2.opt_g.state.values())
+    p0 = {k: p.detach().clone() for k, p in state.g_params.items()}
+    n = [fn.launches for fn in kernels]
+    got, vis = multi(state, chunk, lr)
+    per_capture = [fn.launches - k for fn, k in zip(kernels, n)]
+    n = [fn.launches for fn in kernels]
+    step = ST.make_train_step(nets2)
+    want = [step(state2, b, lr)[0] for b in chunk]
+    assert all(k > 0 for k in per_capture)
+    assert [(fn.launches - k) // 2 for fn, k in zip(kernels, n)] \
+        == per_capture
+    for j, w in enumerate(want):
+        for k, v in w.items():
+            t, o = float(v), float(got[k][j])
+            assert abs(o - t) / (abs(t) + 1e-2) <= 1e-5, (j, k, o, t)
+    num = den = 0.0
+    for k, p in state.g_params.items():
+        w = state2.g_params[k].detach().double()
+        num += float(((p.detach().double() - w) ** 2).sum())
+        den += float(((w - p0[k].double()) ** 2).sum())
+    assert den > 0 and (num / den) ** 0.5 <= 1e-2
+    assert state.step == state2.step == 4
+    assert torch.equal(state.noise.get_state(), state2.noise.get_state())
+    assert vis["fake_image"].shape == (2, 64, 64, 3)

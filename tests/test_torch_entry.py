@@ -269,9 +269,13 @@ def test_test_twin_matches_jax_test_py(tree, trained, monkeypatch):
 def test_twins_refuse_what_they_do_not_run(tree):
     base, root = tree
     flags = _train_flags(base, root)
+    # --steps_per_dispatch is taken (tests/test_torch_multi_step.py runs
+    # it): the option parses, and the run's chunked step builds
+    opt = TTRAIN.parse(flags + ["--steps_per_dispatch", "2"])
+    assert opt.steps_per_dispatch == 2
+    assert callable(TST.make_multi_train_step(TP.Pix2PixNets(opt,
+                                                             device="cpu")))
     for extra, err, match in (
-            (["--steps_per_dispatch", "2"], NotImplementedError,
-             "steps_per_dispatch"),
             # the mesh flags are taken: a mesh the global batch does not
             # split over, or --distributed without its address, is refused
             (["--mesh_data", "3"], ValueError, "must be divisible"),
@@ -283,8 +287,8 @@ def test_twins_refuse_what_they_do_not_run(tree):
                                        "absent"]
     with pytest.raises(SystemExit, match="No checkpoint found"):
         TTEST.main(test_flags)
-    # the loop's options are the train twin's to refuse: the test twin
-    # ignores --steps_per_dispatch, as test.py does, and the nets build
+    # the test twin ignores --steps_per_dispatch, as test.py does, and the
+    # nets build
     run = TTEST.main(test_flags + ["--allow_random_weights", "--how_many",
                                    "2", "--save_per_img", "--output_dir",
                                    os.path.join(base, "rnd"),

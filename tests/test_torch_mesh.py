@@ -21,9 +21,9 @@ from cocosnet_tpu_torch import config as TCFG
 from cocosnet_tpu_torch import mesh as M
 from cocosnet_tpu_torch import pix2pix as TP
 from cocosnet_tpu_torch.cli import common as CM
-from cocosnet_tpu_torch.cli import train as TTRAIN
 from cocosnet_tpu_torch.data import loader as TLD
 from cocosnet_tpu_torch.data import synthetic as SYN
+from cocosnet_tpu_torch.train import steps as TST
 from test_torch_threads import torch_threads  # noqa: F401
 from torch_fixtures import mesh_worker, spawn_job
 
@@ -142,7 +142,7 @@ def JLD_dataset(opt):
 
 def test_check_ported_takes_the_mesh_flags():
     """--mesh_model, --mesh_data and --distributed are taken, with --D_cam
-    too; the model group's correlation refuses spatial centering at run
+    and --steps_per_dispatch too; the model group's correlation refuses spatial centering at run
     time, as JAX's; an even match_kernel is refused."""
     base = dict(dataset_mode="ade20k", label_nc=5, crop_size=64,
                 load_size=64, ngf=8, ndf=8, PONO=True, PONO_C=True,
@@ -152,10 +152,13 @@ def test_check_ported_takes_the_mesh_flags():
                dict(mesh_model=2, match_kernel=1, PONO_C=False)):
         opt = TCFG.test_defaults(**dict(base, **kw))
         TP.check_ported(opt)
-        TTRAIN.check_loop_ported(opt)
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        TTRAIN.check_loop_ported(TCFG.test_defaults(
-            **dict(base, steps_per_dispatch=2)))
+    # --steps_per_dispatch is taken: the chunked step builds (eager on the
+    # CPU) and a job of one process may capture it
+    opt = TCFG.test_defaults(**dict(base, steps_per_dispatch=2))
+    TP.check_ported(opt)
+    M.check_capturable()
+    assert callable(TST.make_multi_train_step(TP.Pix2PixNets(opt,
+                                                             device="cpu")))
     TP.check_ported(TCFG.test_defaults(**dict(base, D_cam=1.0)))
     with pytest.raises(NotImplementedError, match="match_kernel"):
         TP.check_ported(TCFG.test_defaults(**dict(base, match_kernel=2)))

@@ -24,7 +24,9 @@ The 50-step run is this file's __main__, not a test:
 writes PARITY_TRAJECTORY.json's format with "jax" and "port" in place of
 "torch" and "ours" (rel |port - jax| / (|jax| + 1e-3), as there); with
 --perturb 1e-7 it holds JAX against JAX from weights perturbed that much
-("perturbed" in place of "port").
+("perturbed" in place of "port"); --perturb_seed S [S ...] draws the
+perturbation from each seed in turn (default 1), against one unperturbed
+JAX run, and with more than one seed names each run "perturbed_<S>".
 """
 
 import argparse
@@ -167,38 +169,48 @@ def _perturbed(init_sd, eps: float, seed: int = 1):
 def main(argv=None) -> dict:
     """The 50-step comparison of the f32 library route with JAX (jax.jit at
     full optimisation, as run_ours compiles). With --perturb EPS, JAX
-    against JAX from the same weights times (1 + EPS n) instead: the
-    spread the setting's dynamics give a difference of that size."""
+    against JAX from the same weights times (1 + EPS n) instead, n drawn
+    from each --perturb_seed: the spread the setting's dynamics give a
+    difference of that size."""
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--out", default="PARITY_TRAJECTORY_TORCH.json")
     ap.add_argument("--perturb", type=float, default=0.0)
+    ap.add_argument("--perturb_seed", type=int, nargs="+", default=[1])
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     batches = PT.make_batches(args.steps)
     init_sd, vgg_sd = PT.make_init_sd(0), PT.make_vgg_sd(7)
     jax_curves = run_jax(batches, init_sd, vgg_sd,
                          lambda fn, *a: jax.jit(fn))
+    others = {}
     if args.perturb:
-        other, name = run_jax(batches, _perturbed(init_sd, args.perturb),
-                              vgg_sd, lambda fn, *a: jax.jit(fn)), "perturbed"
+        seeds = args.perturb_seed
+        for seed in seeds:
+            name = (f"perturbed_{seed}" if len(seeds) > 1 else "perturbed")
+            others[name] = run_jax(
+                batches, _perturbed(init_sd, args.perturb, seed), vgg_sd,
+                lambda fn, *a: jax.jit(fn))
     else:
-        other, name = PT.run_port(batches, init_sd, vgg_sd, "cpu",
-                                  "library")[0], "port"
+        others["port"] = PT.run_port(batches, init_sd, vgg_sd, "cpu",
+                                     "library")[0]
     report = {}
     for k in sorted(jax_curves):
         t = np.asarray(jax_curves[k])
-        o = np.asarray(other[k])
-        rel = np.abs(o - t) / (np.abs(t) + 1e-3)
-        report[k] = {"jax": t.tolist(), name: o.tolist(),
-                     "max_rel": float(rel.max()),
-                     "mean_rel": float(rel.mean())}
-        print(f"{k:12s} mean_rel={rel.mean():.4f} max_rel={rel.max():.4f} "
-              f"final jax={t[-1]:.4f} {name}={o[-1]:.4f}", flush=True)
+        report[k] = {"jax": t.tolist()}
+        for name, other in others.items():
+            o = np.asarray(other[k])
+            rel = np.abs(o - t) / (np.abs(t) + 1e-3)
+            suffix = "" if len(others) == 1 else f"_{name}"
+            report[k].update({name: o.tolist(),
+                              "max_rel" + suffix: float(rel.max()),
+                              "mean_rel" + suffix: float(rel.mean())})
+            print(f"{k:12s} {name} mean_rel={rel.mean():.4f} "
+                  f"max_rel={rel.max():.4f} final jax={t[-1]:.4f} "
+                  f"{name}={o[-1]:.4f}", flush=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=2)
     return report
-
 
 if __name__ == "__main__":
     main()

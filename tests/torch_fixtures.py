@@ -156,6 +156,49 @@ def parallel_step(opt, batch, seed: int = 0):
                         for net in ("gen", "corr", "disc")})
 
 
+def parallel_chunk(opt, batches, seed: int = 0):
+    """parallel_step's run for make_multi_train_step: the weights drawn as
+    there, then one chunk of len(batches) steps (each this rank's data
+    shard of its numpy batch). Returns the losses ({term: (K,)}) and the
+    trained nets' parameters after the chunk."""
+    from cocosnet_tpu_torch import mesh as M
+    from cocosnet_tpu_torch import pix2pix as P
+    from cocosnet_tpu_torch.train import state as TS
+    from cocosnet_tpu_torch.train import steps as ST
+    mesh = M.global_mesh()
+    nets = P.Pix2PixNets(opt, device="cpu", seed=seed)
+    for i, net in enumerate(nets.modules()):
+        condition(net, seed + i)
+    b = opt.batchSize // mesh.data
+    shards = [{k: v[mesh.data_rank * b:(mesh.data_rank + 1) * b]
+               for k, v in batch.items()} for batch in batches]
+    state = TS.create_train_state(opt, nets)
+    losses, _ = ST.make_multi_train_step(nets)(
+        state, shards, TS.lrs_for_epoch(opt, 1))
+    return dict(losses={k: v.clone() for k, v in losses.items()},
+                params={net: {k: p.detach().clone() for k, p in
+                              getattr(nets, net).named_parameters()}
+                        for net in ("gen", "corr", "disc")})
+
+
+def chunk_worker(rank, world, init, data, model, opt, batches, out_dir):
+    """parallel_chunk on this rank of a (data, model) job; saves its
+    result, with the message of mesh.check_capturable's refusal (a gloo
+    job's collectives cannot be captured on the card)."""
+    from cocosnet_tpu_torch import mesh as M
+    _join(rank, world, init, data, model)
+    try:
+        out = parallel_chunk(opt, batches)
+        try:
+            M.check_capturable()
+            out["refused"] = ""
+        except RuntimeError as err:
+            out["refused"] = str(err)
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        M.shutdown()
+
+
 def step_worker(rank, world, init, data, model, opts, batch, out_dir):
     """parallel_step of each of `opts` on this rank of a (data, model) job;
     saves the list of results."""
