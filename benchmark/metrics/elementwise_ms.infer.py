@@ -1,0 +1,7 @@
+"""Device ms a forward in the elementwise / other kernel family."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.family_ms(run, "elementwise / other")
