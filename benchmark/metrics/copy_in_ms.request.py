@@ -1,0 +1,9 @@
+"""Median over the traced requests of the host's share of the port's
+span `serve.copy_in` (the inputs pinned and copied in): its length less
+the time in which the device ran inside it, ms."""
+
+from benchmark import stages
+
+
+def read(run):
+    return stages.span_ms(run, "serve.copy_in")

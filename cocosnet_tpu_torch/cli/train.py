@@ -67,7 +67,7 @@ from cocosnet_tpu_torch.train import steps as ST
 from cocosnet_tpu_torch.utils import visuals as V
 from cocosnet_tpu_torch.utils.iter_counter import StepEvents, TrainProgress
 from cocosnet_tpu_torch.utils.logging import print_current_errors
-from cocosnet_tpu_torch.utils.profiling import Throughput, maybe_trace
+from cocosnet_tpu_torch.utils.profiling import maybe_trace
 
 
 @dataclasses.dataclass
@@ -134,7 +134,6 @@ def train_loop(opt, device, mesh: M.Mesh) -> TrainRun:
         print("steps_per_dispatch > 1 is unsupported with D_steps_per_G > 1;"
               " running per-step dispatch")
         spd = 1
-    throughput = Throughput()
     save_root = common.save_root(opt)
     run = TrainRun(g_steps=0, d_steps=0, step_seconds=[], losses={},
                    nets=nets, state=state)
@@ -155,7 +154,8 @@ def train_loop(opt, device, mesh: M.Mesh) -> TrainRun:
         if events.print_losses and rank0:
             print_current_errors(
                 opt, epoch, progress.epoch_iter,
-                {**run.losses, "img/s": throughput.step(opt.batchSize)},
+                {**run.losses,
+                 "img/s": opt.batchSize / run.step_seconds[-1]},
                 progress.time_per_img)
         if events.display_visuals and visuals:
             batch, visuals = _global_visuals(batch, visuals)

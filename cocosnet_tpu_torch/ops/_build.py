@@ -25,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 SOURCES = ("shift9_fwd", "shift9_bwd", "conv3x3", "conv3x3_onehot",
-           "corr_fwd", "corr_bwd", "conv3x3_dw")
+           "corr_fwd", "corr_bwd", "conv3x3_dw", "stage_mark")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -64,6 +64,9 @@ SIGNATURES = {
     "conv3x3_dw": {
         "cocosnet_conv3x3_dw": [_P] * 7 + [_I] * 8 + [_P],
         "cocosnet_conv3x3_dw_splits": [_I] * 6,
+    },
+    "stage_mark": {
+        "cocosnet_stage_mark": [_I, _P],
     },
 }
 

@@ -32,6 +32,7 @@ from cocosnet_tpu_torch.nn.layers import get_compute_dtype, init_weights
 from cocosnet_tpu_torch.nn.vgg import VGG19Features
 from cocosnet_tpu_torch.ops.image import (avg_pool, one_hot_scatter,
                                           resize_nearest)
+from cocosnet_tpu_torch.utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 
@@ -228,17 +229,20 @@ def generate_fake(nets: Pix2PixNets, data: Batch, train: bool = False,
     semantics (cocosnet_tpu/pix2pix.py:187-196). Training keeps the dense
     one-hot, as the JAX package does (its one-hot kernel has no backward),
     and hands the correspondence net the real image for its feature-pair
-    loss. `noise`: draw_noise's draws (--mask_noise, --noise_for_mask)."""
+    loss. `noise`: draw_noise's draws (--mask_noise, --noise_for_mask).
+    Marks the stages `corr` and `gen` (utils/profiling.mark)."""
     opt = nets.opt
     kw = {}
     if train:
         kw["real_img"] = data["real_image"]
     elif opt.dataset_mode in MASK_MODES and "input_label" in data:
         kw["seg_label"] = data["input_label"]
+    profiling.mark("corr", nets.device)
     corr_out = nets.corr(data["ref_image"], data["input_semantics"],
                          data["ref_semantics"], **kw, **(noise or {}))
     cbn = cbn_input(opt, corr_out["warp_out"], data["input_semantics"])
     out = dict(corr_out)
+    profiling.mark("gen", nets.device)
     out["fake_image"] = nets.gen(data["input_semantics"], cbn)
     return out
 

@@ -78,6 +78,7 @@ from cocosnet_tpu_torch.data import transforms as T
 from cocosnet_tpu_torch.data.loader import dataset_registry
 from cocosnet_tpu_torch.train import checkpoints as C
 from cocosnet_tpu_torch.train.steps import make_inference_step
+from cocosnet_tpu_torch.utils import profiling
 
 # dataset modes whose labels are plain class-id PNG masks
 _MASK_MODES = ("ade20k", "flickr")
@@ -162,7 +163,11 @@ class GraphStep:
     it (capturing first if needed), on the current stream. The result is
     the graph's own output buffer, which the next call overwrites: copy it
     out on the current stream before calling again. A capture or replay
-    that fails raises; nothing falls back to the eager forward."""
+    that fails raises; nothing falls back to the eager forward.
+
+    A call records two host spans (utils/profiling.span), both with the
+    call's sequence number as their id: `serve.copy_in`, the copies of the
+    inputs (each pinned anew), then `serve.launch`, the replay's launch."""
 
     def __init__(self, forward: Callable, inputs: Dict[str, torch.Tensor]):
         self.forward = forward
@@ -170,6 +175,7 @@ class GraphStep:
         self.stream = torch.cuda.Stream(next(iter(inputs.values())).device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.output: Optional[torch.Tensor] = None
+        self.calls = 0
 
     def warm_up(self) -> None:
         current = torch.cuda.current_stream(self.stream.device)
@@ -189,17 +195,21 @@ class GraphStep:
         if self.graph is None:
             self.warm_up()
             self.capture()
-        for k, dst in self.inputs.items():
-            src = torch.as_tensor(batch[k], dtype=torch.float32)
-            if src.shape != dst.shape:
-                raise ValueError(f"{k}: the graph takes {tuple(dst.shape)}, "
-                                 f"got {tuple(src.shape)}")
-            if not src.is_cuda:
-                # a pinned copy of its own each call: the host allocator
-                # keeps it until this copy has run
-                src = src.pin_memory()
-            dst.copy_(src, non_blocking=True)
-        self.graph.replay()
+        self.calls += 1
+        with profiling.span("serve.copy_in", self.calls):
+            for k, dst in self.inputs.items():
+                src = torch.as_tensor(batch[k], dtype=torch.float32)
+                if src.shape != dst.shape:
+                    raise ValueError(f"{k}: the graph takes "
+                                     f"{tuple(dst.shape)}, got "
+                                     f"{tuple(src.shape)}")
+                if not src.is_cuda:
+                    # a pinned copy of its own each call: the host
+                    # allocator keeps it until this copy has run
+                    src = src.pin_memory()
+                dst.copy_(src, non_blocking=True)
+        with profiling.span("serve.launch", self.calls):
+            self.graph.replay()
         return self.output
 
 
@@ -209,12 +219,17 @@ def make_serve_step(nets: P.Pix2PixNets, batch_size: int):
     quantization. batch: the entries of zero_batch, numpy arrays or
     tensors. On the card the forward is a GraphStep for (batch_size,
     crop); on the CPU it runs eagerly, returning a fresh tensor each
-    call."""
+    call. The forward marks its stages (utils/profiling.mark): `prep`
+    first, `corr` and `gen` in pix2pix.generate_fake, `end` after the
+    quantization."""
     infer = make_inference_step(nets)
 
     def forward(batch) -> torch.Tensor:
         with torch.inference_mode():
-            return quantize(infer(batch)["fake_image"])
+            profiling.mark("prep", nets.device)
+            out = quantize(infer(batch)["fake_image"])
+            profiling.mark("end", nets.device)
+            return out
 
     if nets.device.type != "cuda":
         return forward

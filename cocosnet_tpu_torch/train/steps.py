@@ -48,7 +48,7 @@ either way each spectral norm and BatchNorm advances once a forward
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,16 +57,24 @@ from cocosnet_tpu_torch import pix2pix as P
 from cocosnet_tpu_torch.nn import layers as L
 from cocosnet_tpu_torch.nn import remat
 from cocosnet_tpu_torch.train import state as S
+from cocosnet_tpu_torch.utils import profiling
 
 
 def _apply_grads(optimizer: torch.optim.Optimizer, params: Sequence,
-                 loss: torch.Tensor) -> None:
+                 loss: torch.Tensor,
+                 stages: Optional[Tuple[str, str]] = None) -> None:
     """One Adam step of `params` on d(loss)/d(params), averaged over the
     job's ranks, at the rate the optimizer holds (S.set_lrs); a parameter
-    the loss does not reach takes a zero gradient, as in optax."""
+    the loss does not reach takes a zero gradient, as in optax. `stages`:
+    the stage marks (utils/profiling.mark) before the gradient and before
+    the update."""
+    if stages:
+        profiling.mark(stages[0], loss.device)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = M.mean_over_job([torch.zeros_like(p) if g is None else g
                              for p, g in zip(params, grads)])
+    if stages:
+        profiling.mark(stages[1], loss.device)
     for p, g in zip(params, grads):
         p.grad = g
     optimizer.step()
@@ -77,19 +85,29 @@ def _g_phase(nets: P.Pix2PixNets, state: S.TrainState, data: P.Batch
              ) -> Tuple[Dict[str, torch.Tensor], P.Batch]:
     """The generator half of a step, inside train mode and
     nn.layers.training(): the forward and its loss terms, Adam on netG +
-    netCorr, the EMA shadows. Returns (G losses, the forward's outputs)."""
+    netCorr, the EMA shadows. Returns (G losses, the forward's outputs).
+    Marks the stages `losses` (the VGG features and the loss terms),
+    `loss_backward` (the gradient until it reaches the fake image: the
+    loss terms' backward through VGG and D), `net_backward` (from the
+    fake's gradient hook: the generator's and the correspondence's
+    backward) and `g_update` (the Adam step and the EMA)."""
     opt = nets.opt
     noise = P.draw_noise(opt, data, state.noise, train=True)
     if opt.remat_full:
         out = remat.checkpoint(P.generate_fake, nets, data, True, noise)
     else:
         out = P.generate_fake(nets, data, train=True, noise=noise)
+    if out["fake_image"].requires_grad:
+        out["fake_image"].register_hook(
+            lambda g: profiling.mark("net_backward", g.device))
+    profiling.mark("losses", nets.device)
     with torch.no_grad():
         out["ref_features"] = P.vgg_features(nets, data["ref_image"])
         out["real_features"] = P.vgg_features(nets, data["real_image"])
     g_losses = P.compute_generator_losses(nets, data, out)
     g_params = list(state.g_params.values())
-    _apply_grads(state.opt_g, g_params, sum(g_losses.values()))
+    _apply_grads(state.opt_g, g_params, sum(g_losses.values()),
+                 ("loss_backward", "g_update"))
     if state.ema is not None:
         S.ema_update(state.ema, state.g_params, opt.ema_beta)
     return g_losses, out
@@ -98,7 +116,9 @@ def _g_phase(nets: P.Pix2PixNets, state: S.TrainState, data: P.Batch
 def _d_phase(nets: P.Pix2PixNets, state: S.TrainState, data: P.Batch,
              fake_image: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The discriminator half, on the fake detached, inside train mode and
-    nn.layers.training(): its losses and Adam on D."""
+    nn.layers.training(): its losses and Adam on D. Marks the stage
+    `d_step`."""
+    profiling.mark("d_step", nets.device)
     d_losses = P.compute_discriminator_losses(nets, data, fake_image)
     _apply_grads(state.opt_d, S.d_parameters(nets), sum(d_losses.values()))
     return d_losses
@@ -111,11 +131,13 @@ def make_train_step(nets: P.Pix2PixNets):
     (S.set_lrs). The losses are 0-d f32 tensors on the nets' device
     (reading them synchronises). `step.fused(state, batch)` is the step
     without the rates and the host's step counter: what
-    make_multi_train_step captures."""
+    make_multi_train_step captures. It marks its stages
+    (utils/profiling.STAGES) in order, `prep` first and `end` last."""
     opt = nets.opt
 
     def fused(state: S.TrainState, batch
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        profiling.mark("prep", nets.device)
         data = P.preprocess_input(opt, batch, device=nets.device)
         nets.set_train(True)
         try:
@@ -127,6 +149,7 @@ def make_train_step(nets: P.Pix2PixNets):
         losses = _global_losses({**g_losses, **d_losses})
         visuals = {k: out[k].detach() for k in ("fake_image", "warp_out",
                                                 "warp_mask") if k in out}
+        profiling.mark("end", nets.device)
         return losses, visuals
 
     def train_step(state: S.TrainState, batch, lr

@@ -1,26 +1,46 @@
 """Profiling and measuring: the port's counterpart of
 cocosnet_tpu/utils/profiling.py, with torch.profiler in place of
-jax.profiler, and the measuring helpers that chip_smoke.py and the profile
-twins (tools/profile_inference.py, tools/profile_train.py) share: the card's
-published peaks, CUDA-event and profiler timers, the least time of a call
-(bytes over the memory rate, operations over the peak rate), the operation
-counts of the hand-written kernels and the device time of a call by kernel
-family.
+jax.profiler; the port's own tracing (stage marks on the device, host spans
+on the request path); and the measuring helpers that chip_smoke.py and the
+profile twins (tools/profile_inference.py, tools/profile_train.py) share:
+the card's published peaks, CUDA-event and profiler timers, the least time
+of a call (bytes over the memory rate, operations over the peak rate), the
+operation counts of the hand-written kernels and the device time of a call
+by kernel family.
 
 Usage (the train twin traces its third step under --profile_dir):
     with maybe_trace(opt.profile_dir, enabled=(i == 2)):
         losses, visuals = train_step(state, batch, lr)
 
-The trace is a Chrome trace (chrome://tracing, Perfetto) of the host's ops
-and, on a CUDA device, the kernels' device time.
+The trace is a Chrome trace (chrome://tracing, Perfetto) of the host's ops,
+the block's host spans and, on a CUDA device, the kernels' device time, the
+stage marks among them.
+
+Both instruments are always on:
+
+- `mark(stage, device)` launches the stage's empty one-thread kernel,
+  `stage_mark_<stage>` (csrc/stage_mark.cu), on the device's current
+  stream where a stage of a forward or a train step begins. A CUDA graph
+  captures it like any kernel, so each replay records it in a device trace:
+  a stage's device time is that of the device operations from its mark to
+  the next one. It costs one device record of about a microsecond; off the
+  card it does nothing.
+- `with span(name, trace_id):` records (name, start_ns, end_ns, trace_id,
+  parent) on time.time_ns(), the clock of torch.profiler's host and device
+  records, into a ring of the last SPAN_RING records: two clock reads and
+  an append. `spans()` returns them. They stay out of torch.profiler, whose
+  record_function ranges would also land on the device's timeline.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import os
+import threading
 import time
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 
@@ -39,11 +59,85 @@ SPLIT_PASSES = 3
 TIMED_RUNS = 25
 
 
+# ------------------------------------------------------------- the tracing
+
+# the stages of a forward (prep, corr, gen, end) and of a fused train step
+# (all of them), in the order they run; csrc/stage_mark.cu holds a kernel
+# per stage in this order
+STAGES = ("prep", "corr", "gen", "losses", "loss_backward", "net_backward",
+          "g_update", "d_step", "end")
+MARK_KERNEL = "stage_mark_"
+_STAGE_INDEX = {s: i for i, s in enumerate(STAGES)}
+
+
+def mark(stage: str, device) -> None:
+    """Launches stage `stage`'s mark on `device`'s current stream (inside a
+    capture, into the graph); nothing where `device` is not a CUDA
+    device."""
+    index = _STAGE_INDEX[stage]
+    if torch.device(device).type != "cuda":
+        return
+    from cocosnet_tpu_torch.ops import _build
+    lib = _build.library("stage_mark")
+    err = lib.cocosnet_stage_mark(
+        index, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, f"stage mark {stage}")
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    trace_id: object
+    parent: Optional[str]
+
+
+SPAN_RING = 4096
+_spans: "collections.deque[Span]" = collections.deque(maxlen=SPAN_RING)
+_open = threading.local()
+
+
+class span:
+    """`with span(name, trace_id):` records the block's Span. Without a
+    trace_id a span takes its parent's (the innermost span open on this
+    thread), so the parts of one call share its id."""
+
+    __slots__ = ("name", "trace_id", "parent", "start_ns")
+
+    def __init__(self, name: str, trace_id=None):
+        self.name, self.trace_id = name, trace_id
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        outer = stack[-1] if stack else None
+        self.parent = outer.name if outer is not None else None
+        if self.trace_id is None and outer is not None:
+            self.trace_id = outer.trace_id
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.time_ns()
+        _open.stack.pop()
+        _spans.append(Span(self.name, self.start_ns, end_ns, self.trace_id,
+                           self.parent))
+        return False
+
+
+def spans() -> List[Span]:
+    """The ring's spans, oldest first."""
+    return list(_spans)
+
+
 @contextlib.contextmanager
 def maybe_trace(logdir: Optional[str], enabled: bool = True,
                 name: str = "trace") -> Iterator[None]:
     """Profiles the block into <logdir>/<name>.json when logdir is set and
-    enabled is true; otherwise does nothing."""
+    enabled is true, with the block's host spans beside the profiler's
+    records; otherwise does nothing."""
     if not (logdir and enabled):
         yield
         return
@@ -52,31 +146,39 @@ def maybe_trace(logdir: Optional[str], enabled: bool = True,
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
+        start_ns = time.time_ns()
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        end_ns = time.time_ns()
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, f"{name}.json")
     prof.export_chrome_trace(path)
+    _add_spans(path, [s for s in spans()
+                      if s.start_ns >= start_ns and s.end_ns <= end_ns])
     print(f"wrote the profile to {path}")
 
 
-class Throughput:
-    """Images/sec EMA for step logging."""
-
-    def __init__(self, beta: float = 0.9):
-        self.beta = beta
-        self.value = None
-        self._last = None
-
-    def step(self, n_images: int) -> float:
-        now = time.perf_counter()
-        if self._last is not None:
-            ips = n_images / (now - self._last)
-            self.value = (ips if self.value is None
-                          else self.beta * self.value + (1 - self.beta) * ips)
-        self._last = now
-        return self.value or 0.0
+def _add_spans(path: str, block: List[Span]) -> None:
+    """The spans into the Chrome trace at `path`, as complete events on a
+    row of their own, on the trace's time base (its events' ts are us
+    after baseTimeNanoseconds)."""
+    with open(path) as f:
+        trace = json.load(f)
+    base = trace.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    events = trace.setdefault("traceEvents", [])
+    events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": 0,
+                   "args": {"name": "program spans"}})
+    for s in block:
+        events.append({"ph": "X", "cat": "program_span", "name": s.name,
+                       "pid": pid, "tid": 0,
+                       "ts": (s.start_ns - base) / 1e3,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": {"trace_id": s.trace_id,
+                                "parent": s.parent}})
+    with open(path, "w") as f:
+        json.dump(trace, f, default=str)
 
 
 # ------------------------------------------------------------------ timers

@@ -857,3 +857,69 @@ def test_chunk_graph_replays_the_eager_steps(gen, monkeypatch, tmp_path,
     assert state.step == state2.step == 4
     assert torch.equal(state.noise.get_state(), state2.noise.get_state())
     assert vis["fake_image"].shape == (2, 64, 64, 3)
+
+
+def _marks_recorded(fn):
+    """The stage marks a profile of fn's device work records, in order,
+    after the padding that takes a session's lost head records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cocosnet_tpu_torch.utils import profiling as PR
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        PR._pad_session()
+        fn()
+        torch.cuda.synchronize()
+    kernels, _ = PR._device_events(prof)
+    marks = sorted((start, name) for name, start, _ in kernels
+                   if PR.MARK_KERNEL in name)
+    return [name.split(PR.MARK_KERNEL, 1)[1].split("(")[0]
+            for _, name in marks]
+
+
+def test_graph_replays_record_every_stage_mark_once(gen):
+    """A tiny serve graph (64 px, ngf 8, label_nc 12, batch 1, f32) and a
+    tiny chunk graph (batch 2) captured, then replayed under the profiler:
+    each replay records each of its stage marks once, in order."""
+    from cocosnet_tpu_torch import config as TCFG
+    from cocosnet_tpu_torch import pix2pix as TP
+    from cocosnet_tpu_torch.tools import serve as SV
+    from cocosnet_tpu_torch.train import state as TS
+    from cocosnet_tpu_torch.train import steps as ST
+    from cocosnet_tpu_torch.utils import profiling as PR
+    model = dict(dataset_mode="ade20k", label_nc=12,
+                 contain_dontcare_label=True, crop_size=64, load_size=64,
+                 ngf=8, ndf=8, use_attention=True, maskmix=True, PONO=True,
+                 PONO_C=True, warp_mask_losstype="direct",
+                 compute_dtype="f32")
+
+    def batch(b):
+        return {"label": torch.randint(0, 13, (b, 64, 64, 1),
+                                       generator=gen).float(),
+                "image": torch.rand(b, 64, 64, 3, generator=gen) * 2 - 1,
+                "ref": torch.rand(b, 64, 64, 3, generator=gen) * 2 - 1,
+                "label_ref": torch.randint(0, 13, (b, 64, 64, 1),
+                                           generator=gen).float(),
+                "self_ref": torch.ones(b)}
+
+    nets = TP.Pix2PixNets(TCFG.test_defaults(**model, batchSize=1,
+                                             isTrain=False), device="cuda")
+    step = SV.make_serve_step(nets, 1)
+    x = {k: v.numpy() for k, v in batch(1).items()}
+    step(x)                      # warm-up, capture, first replay
+    got = _marks_recorded(lambda: [step(x) for _ in range(3)])
+    assert got == ["prep", "corr", "gen", "end"] * 3
+
+    opt = TCFG.test_defaults(**model, batchSize=2, isTrain=True,
+                             use_ema=True, vgg_normal_correct=True,
+                             weight_mask=100.0)
+    nets = TP.Pix2PixNets(opt, device="cuda")
+    state = TS.create_train_state(opt, nets)
+    multi = ST.make_multi_train_step(nets)
+    lr = TS.lrs_for_epoch(opt, 1)
+    batches = [{k: v.cuda() for k, v in batch(2).items()} for _ in range(3)]
+    multi(state, batches, lr)    # two eager steps, the capture, a replay
+    assert multi.graph is not None
+    got = _marks_recorded(lambda: multi(state, batches, lr))
+    assert got == list(PR.STAGES) * 3

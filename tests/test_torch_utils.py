@@ -114,12 +114,3 @@ def test_maybe_trace_writes_a_chrome_trace(tmp_path):
         trace = json.load(f)
     names = {e.get("name") for e in trace["traceEvents"]}
     assert "aten::mm" in names
-
-
-def test_throughput_averages_images_per_second(monkeypatch):
-    clock = iter([0.0, 1.0, 1.5])
-    monkeypatch.setattr(TPR.time, "perf_counter", lambda: next(clock))
-    t = TPR.Throughput(beta=0.5)
-    assert t.step(4) == 0.0
-    assert t.step(4) == 4.0
-    assert t.step(4) == 0.5 * 4.0 + 0.5 * 8.0
