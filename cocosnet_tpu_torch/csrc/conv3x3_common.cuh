@@ -33,14 +33,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; with valid == false nothing is
-// read and the 16 bytes are zeros (src-size 0).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+// 16 bytes global -> shared (the shared address as 32 bits), asynchronously;
+// with valid == false nothing is read and the 16 bytes are zeros (src-size
+// 0).
+__device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem,
                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem),
                "l"(gmem), "r"(valid ? 16 : 0)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  cp_async16(smem_u32(smem), gmem, valid);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -46,7 +46,7 @@ SIGNATURES = {
         "cocosnet_shift9_bwd_owned": [],
     },
     "conv3x3": {
-        "cocosnet_conv3x3": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+        "cocosnet_conv3x3": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
         "cocosnet_conv3x3_tile_pixels": [],
     },
     "conv3x3_onehot": {

@@ -24,6 +24,8 @@ E[x^2] - E[x]^2 clamped at 0 (pallas_conv.py:692-701).
 
 from __future__ import annotations
 
+import collections
+import functools
 import os
 from typing import Optional
 
@@ -33,6 +35,31 @@ import torch.nn.functional as F
 from cocosnet_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The bf16 kernel's tiles, (output pixels TM, output channels TN) a block
+# owns at a time: csrc/conv3x3.cu instantiates exactly these
+# (COCOSNET_CONV3X3_TILES). TM 128 or 256: each consumer warpgroup TM / 2
+# pixel rows x TN; TM 64: each the 64 rows x TN / 2.
+CONV_TILES = ((256, 128), (256, 64), (128, 256), (128, 208), (128, 144),
+              (128, 128), (128, 64), (64, 256), (64, 208), (64, 144),
+              (64, 128), (64, 64))
+# How the kernel's producer fills a stage's pixel rows: "box", tensor
+# copies of whole row segments of the image (where a tile is made of them),
+# or "gather", cp.async row by row.
+CONV_PATHS = ("box", "gather")
+# bf16 launches by configuration (TM, TN, path): which the main path takes
+TILE_LAUNCHES: collections.Counter = collections.Counter()
+H100_SMS = 132
+# The tile rule's model of one SM of the H100 (ops/conv3x3.tile_config):
+# tensor-core flops a clock (989 TFLOP/s bf16 over 132 SMs at 1.83 GHz),
+# the operand bytes a clock its copies sustain and a fixed cost of a k16
+# step in clocks (the waits and the issue around the wgmma), the last two
+# fitted to every tile and path of the ADE20k B6 and B1 and the DeepFashion
+# B4 forwards' shapes timed on the card (PERF.md).
+_TENSOR_FLOPS_CLK = 4096
+_OPERAND_BYTES_CLK = 80
+_STEP_CLK = 64
+
 
 # "1" routes the training convs of the winners table below through
 # conv3x3_xla_pdw, "all" every convolution of the size conditions; "0" (the
@@ -111,8 +138,54 @@ def _pad_scratch(x: torch.Tensor, *shapes):
         for s in shapes)
 
 
+def k16_steps(cin: int) -> int:
+    """The bf16 kernel's K steps of 16 channels a tile: 9 taps x Cin padded
+    to 8 channels, a tap's last 64-channel stage cut to the steps that hold
+    channels."""
+    return 9 * -(-(-(-cin // 8) * 8) // 16)
+
+
+def box_fits(tm: int, w: int) -> bool:
+    """Whether a TM-pixel tile is whole row segments of a W-pixel row: TM
+    pixels of one row (W a multiple of TM) or at most 4 whole rows (TM a
+    multiple of W, W a multiple of 8), the kernel's condition for "box"."""
+    if tm <= w:
+        return w % tm == 0
+    return tm % w == 0 and tm // w <= 4 and w % 8 == 0
+
+
+def tile_config(b: int, h: int, w: int, cin: int, cout: int,
+                sms: int = H100_SMS):
+    """(TM, TN, path) of csrc/conv3x3.cu's bf16 kernel for a (B, H, W, Cin)
+    -> Cout call, from its shape alone. The tile of CONV_TILES minimizes a
+    model of the call's time: ceil(tiles / sms) rounds (one block an SM
+    walks the tiles) of a tile's k16_steps, each the longer of its tensor
+    time and its operand traffic (TM + TN rows of 32 bytes) plus a fixed
+    cost; ties go to the wider TN. The path is "box" where the tile is whole
+    row segments, TM is at least 128 and either TM is 256 or Cin at most
+    160, else "gather" (on the H100 the row-by-row copies fed 128-pixel
+    tiles of 256 and more channels, and 64-pixel tiles, faster)."""
+    k16 = k16_steps(cin)
+
+    def cost(tile):
+        tm, tn = tile
+        tiles = b * -(-(h * w) // tm) * -(-cout // tn)
+        step = max(2 * tm * tn * 16 / _TENSOR_FLOPS_CLK,
+                   (tm + tn) * 32 / _OPERAND_BYTES_CLK) + _STEP_CLK
+        return -(-tiles // sms) * k16 * step, -tn
+
+    tm, tn = min(CONV_TILES, key=cost)
+    box = box_fits(tm, w) and tm >= 128 and (tm == 256 or cin <= 160)
+    return tm, tn, "box" if box else "gather"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _conv3x3_kernel(x, kernel, bias, reflect, leaky, want_stats):
-    """Launches csrc/conv3x3.cu."""
+    """Launches csrc/conv3x3.cu; bf16 on the tile of tile_config."""
     _check_kernel_args(x, kernel, "conv3x3")
     b, h, w, c = x.shape
     cout = kernel.shape[-1]
@@ -124,24 +197,32 @@ def _conv3x3_kernel(x, kernel, bias, reflect, leaky, want_stats):
     bias = (torch.zeros(cout, device=x.device) if bias is None
             else bias.to(device=x.device, dtype=torch.float32).contiguous())
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    is_bf16 = x.dtype == torch.bfloat16
+    sms = _sm_count(x.device.index if x.device.index is not None
+                    else torch.cuda.current_device())
+    tm, tn, path = (tile_config(b, h, w, c, cout, sms) if is_bf16
+                    else (lib.cocosnet_conv3x3_tile_pixels(), 0, "gather"))
     stats = None
     if want_stats:
-        tiles = -(-(h * w) // lib.cocosnet_conv3x3_tile_pixels())
-        stats = torch.empty((b, tiles, 2, cout), dtype=torch.float32,
-                            device=x.device)
+        stats = torch.empty((b, -(-(h * w) // tm), 2, cout),
+                            dtype=torch.float32, device=x.device)
     (x_pad,) = _pad_scratch(x, (b, h, w, c))
-    # bf16: scratch for the K-major weights the kernel reads
-    k_t = None if x.dtype != torch.bfloat16 else torch.empty(
-        (cout, 3, 3, -(-c // 8) * 8), dtype=x.dtype, device=x.device)
+    # bf16: scratch for the weights as the kernel's B tiles, (Cout tiles, 9
+    # taps, 64-channel stages, TN, 64), then the bias, (Cout tiles, TN) f32
+    k_t = None if not is_bf16 else torch.empty(
+        -(-cout // tn) * (9 * -(-c // 64) * 64 + 2) * tn, dtype=x.dtype,
+        device=x.device)
     with torch.cuda.device(x.device):
         err = lib.cocosnet_conv3x3(
             x.data_ptr(), k.data_ptr(), bias.data_ptr(), out.data_ptr(),
             stats.data_ptr() if want_stats else None, _ptr(x_pad),
             _ptr(k_t), b, h, w, c, cout, int(reflect),
-            int(leaky is not None), float(leaky or 0.0),
-            int(x.dtype == torch.bfloat16),
+            int(leaky is not None), float(leaky or 0.0), int(is_bf16), tm,
+            tn, int(path == "box"), sms,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "conv3x3")
+    if is_bf16:
+        TILE_LAUNCHES[(tm, tn, path)] += 1
     if not want_stats:
         return out
     return (out,) + _moments(stats.sum(dim=1), h * w)

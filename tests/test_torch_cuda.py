@@ -60,11 +60,18 @@ def _tol(ref, dtype):
     # the 64-channel tile (Cout <= 64), H W = 240
     (2, 12, 20, 128, 48),
     # the smallest reflect ring
-    (2, 2, 2, 64, 64)])
+    (2, 2, 2, 64, 64),
+    # the flagship's channel pairs at reduced spatial size (rows of 64 and
+    # 32 pixels: the tensor-copy path where the rule takes it), and a
+    # request's 64 x 64 grid
+    (1, 16, 64, 407, 407), (2, 8, 64, 128, 512), (2, 16, 32, 154, 128),
+    (1, 16, 64, 151, 128), (1, 8, 64, 512, 256), (2, 16, 32, 128, 64),
+    (1, 64, 64, 128, 512)])
 def test_conv3x3_kernel_matches_plain(gen, shape, stats, reflect, dtype):
-    """Every branch of csrc/conv3x3.cu (both tile widths, inputs with and
-    without the channel-padded copy, ragged pixel and channel tiles, the
-    statistics epilogue) against conv3x3_plain on the same operands."""
+    """Every branch of csrc/conv3x3.cu (the tiles the rule takes, inputs
+    with and without the channel-padded copy, ragged pixel and channel
+    tiles, the statistics epilogue) against conv3x3_plain on the same
+    operands."""
     b, h, w, ci, co = shape
     x = _r(gen, b, h, w, ci, dtype=dtype)
     k = _r(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5, dtype=dtype)
@@ -80,6 +87,123 @@ def test_conv3x3_kernel_matches_plain(gen, shape, stats, reflect, dtype):
                                atol=_tol(want[0], dtype))
     for a, r in zip(got[1:], want[1:]):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+def _conv_operands(g, b, h, w, ci, co):
+    return (_r(g, b, h, w, ci, dtype=torch.bfloat16),
+            _r(g, 3, 3, ci, co, scale=(9 * ci) ** -0.5, dtype=torch.bfloat16),
+            _r(g, co, scale=0.1))
+
+
+@pytest.mark.parametrize("reflect", [False, True])
+@pytest.mark.parametrize("path", C.CONV_PATHS)
+@pytest.mark.parametrize("tile", C.CONV_TILES,
+                         ids=[f"{m}x{n}" for m, n in C.CONV_TILES])
+@pytest.mark.parametrize("shape", [(2, 16, 64, 407, 407),
+                                   (1, 8, 128, 128, 136)],
+                         ids=["407-407-rows64", "128-136-rows128"])
+def test_conv3x3_kernel_runs_every_configuration(gen, monkeypatch, shape,
+                                                 tile, path, reflect):
+    """Each configuration the tile rule can choose, (TM, TN) of CONV_TILES
+    by either path, forced on the flagship's 407 -> 407 statistics conv at
+    16 x 64 and on a ragged 136-channel output at 8 x 128 (whole row
+    segments at every TM, so "box" runs its tensor copies): the output and
+    the moments as conv3x3_plain's, and the launch counted under it."""
+    b, h, w, ci, co = shape
+    x, k, bias = _conv_operands(gen, b, h, w, ci, co)
+    monkeypatch.setattr(C, "tile_config", lambda *a, **kw: tile + (path,))
+    n = C.TILE_LAUNCHES[tile + (path,)]
+    got = C.conv3x3_fused_stats(x, k, bias, reflect=reflect)
+    assert C.TILE_LAUNCHES[tile + (path,)] == n + 1
+    want = C.conv3x3_plain(x, k, bias, reflect=reflect, want_stats=True)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=0,
+                               atol=_tol(want[0], torch.bfloat16))
+    for a, r in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64, 407, 407),
+                                   (1, 16, 64, 128, 512),
+                                   (2, 8, 256, 154, 128)],
+                         ids=["407-407", "128-512", "154-128"])
+def test_conv3x3_kernel_gives_the_same_bits(gen, shape):
+    """Two calls on the same operands: the same output and moments bit for
+    bit (no atomics; the statistics' partials summed in a fixed order)."""
+    x, k, bias = _conv_operands(gen, *shape)
+    first = C.conv3x3_fused_stats(x, k, bias, reflect=True)
+    again = C.conv3x3_fused_stats(x, k, bias, reflect=True)
+    for a, r in zip(first, again):
+        assert torch.equal(a, r)
+
+
+def test_conv3x3_kernel_graph_replays_the_eager_call(gen):
+    """Calls captured in a CUDA graph (as GraphStep captures the forward)
+    and replayed on new operands copied into the captured inputs: the eager
+    calls' bits. Nothing of one launch carries to the next."""
+    shapes = [(2, 16, 64, 407, 407), (1, 16, 64, 128, 512)]
+    ops = [_conv_operands(gen, *s) for s in shapes]
+
+    def calls():
+        return [C.conv3x3_fused_stats(x, k, bias, reflect=True)
+                for x, k, bias in ops]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    for _ in range(2):
+        for (x, k, bias), s in zip(ops, shapes):
+            new = _conv_operands(gen, *s)
+            x.copy_(new[0])
+            k.copy_(new[1])
+            bias.copy_(new[2])
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, calls()):
+            for a, r in zip(got, want):
+                assert torch.equal(a, r)
+
+
+def test_b6_serve_forward_takes_the_rules_configurations(gen):
+    """The flagship's B6 serve graph (ADE20k, 256 px, ngf 64, bf16): the
+    capture call's conv3x3.cu launches, counted by configuration in
+    TILE_LAUNCHES, are those tile_config gives the forward's 100 calls
+    (torch_fixtures.FORWARD_CONVS)."""
+    import collections
+
+    from cocosnet_tpu_torch import config as TCFG
+    from cocosnet_tpu_torch import pix2pix as TP
+    from cocosnet_tpu_torch.nn import layers as L
+    from cocosnet_tpu_torch.tools import serve as SV
+    from torch_fixtures import FORWARD_CONVS, condition
+    opt = TCFG.test_defaults(
+        dataset_mode="ade20k", label_nc=150, contain_dontcare_label=True,
+        crop_size=256, load_size=256, batchSize=6, ngf=64,
+        use_attention=True, maskmix=True, PONO=True, PONO_C=True,
+        warp_mask_losstype="direct", match_kernel=3, isTrain=False)
+    L.set_compute_dtype(torch.bfloat16)
+    try:
+        nets = TP.Pix2PixNets(opt, device="cuda")
+        condition(nets.gen, 1)
+        condition(nets.corr, 2)
+        step = SV.make_serve_step(nets, 6)
+        step.warm_up()
+        before = collections.Counter(C.TILE_LAUNCHES)
+        step.capture()
+        taken = collections.Counter(C.TILE_LAUNCHES)
+        taken.subtract(before)
+        taken = +taken
+    finally:
+        L.set_compute_dtype(None)
+    want = collections.Counter()
+    for (b, h, w, ci, co, _, _), n in FORWARD_CONVS["ade20k-b6"]:
+        want[C.tile_config(b, h, w, ci, co)] += n
+    assert sum(taken.values()) == 100
+    assert taken == want
 
 
 def test_conv3x3_kernel_leaky(gen):

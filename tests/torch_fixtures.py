@@ -51,6 +51,52 @@ def condition(module, seed):
                 m.gamma.fill_(0.5)
 
 
+# The conv3x3.cu calls of one forward at published widths (256 px, ngf
+# 64, bf16): ((B, H, W, Cin, Cout, reflect ring, statistics), calls), as
+# nn.layers.conv2d routes the convolutions of pix2pix.inference at the
+# benchmark's ADE20k (B6, and B1 for a request) and DeepFashion (B4)
+# configurations: 100, 100 and 84 calls.
+_ADE20K_CONVS = (
+    ((64, 64, 128, 512, True, False), 28),
+    ((64, 64, 407, 407, True, True), 16),
+    ((64, 64, 512, 512, True, False), 8),
+    ((64, 64, 151, 128, True, False), 7),
+    ((64, 64, 128, 256, True, False), 6),
+    ((128, 128, 128, 256, True, False), 4),
+    ((256, 256, 128, 128, True, False), 4),
+    ((64, 64, 512, 256, True, False), 3),
+    ((64, 64, 256, 256, True, False), 3),
+    ((64, 64, 154, 128, True, False), 3),
+    ((128, 128, 154, 128, True, False), 3),
+    ((128, 128, 128, 128, True, False), 3),
+    ((256, 256, 154, 128, True, False), 3),
+    ((256, 256, 128, 64, True, False), 3),
+    ((128, 128, 128, 256, False, True), 2),
+    ((64, 64, 512, 512, False, True), 2),
+    ((128, 128, 256, 128, True, False), 1),
+    ((256, 256, 64, 64, True, False), 1))
+_DEEPFASHION_CONVS = (
+    ((64, 64, 128, 512, True, False), 28),
+    ((64, 64, 256, 256, True, True), 16),
+    ((64, 64, 512, 512, True, False), 8),
+    ((64, 64, 128, 256, True, False), 6),
+    ((128, 128, 128, 256, True, False), 4),
+    ((256, 256, 128, 128, True, False), 4),
+    ((64, 64, 512, 256, True, False), 3),
+    ((64, 64, 256, 256, True, False), 3),
+    ((128, 128, 128, 128, True, False), 3),
+    ((256, 256, 128, 64, True, False), 3),
+    ((128, 128, 128, 256, False, True), 2),
+    ((64, 64, 512, 512, False, True), 2),
+    ((128, 128, 256, 128, True, False), 1),
+    ((256, 256, 64, 64, True, False), 1))
+FORWARD_CONVS = {
+    name: tuple(((b,) + shape, n) for shape, n in convs)
+    for name, b, convs in (("ade20k-b6", 6, _ADE20K_CONVS),
+                           ("ade20k-b1", 1, _ADE20K_CONVS),
+                           ("deepfashion-b4", 4, _DEEPFASHION_CONVS))}
+
+
 # ----------------------------------------------------------------- jobs
 # The multi-process tests run the port in gloo workers on the CPU, spawned
 # with a file:// rendezvous under the test's tmp_path (parallel test
