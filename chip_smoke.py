@@ -88,7 +88,9 @@ ngf 64, ndf 64, 151 classes, bf16 policy, seeded random weights):
   save inside the chunk, a tail step and a resume; (d) a chunk in a
   one-rank NCCL group;
 checking on each path that every kernel of that path was launched as often
-as the routing predicts.
+as the routing predicts (ops/ring's reflect ring, held in phase 2 at the
+flagship step's shapes, on every train path by ring width, and on the serve
+graphs' capture calls).
 
     python3 chip_smoke.py
 
@@ -108,6 +110,7 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -209,6 +212,58 @@ def check_conv(C, g, *, b, h, w, ci, co, reflect, stats, dtype, label):
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=library_ms)
+
+
+def check_ring(R, g, *, b, h, w, c, p, label):
+    """ops/ring's kernel pair at one of the library route's bf16 shapes:
+    the forward bit for bit against F.pad of the NCHW view, the backward
+    within one rounding of the f64 sum of the gradient (one bf16 ulp of the
+    sum of its magnitudes) and the same bits on a second run. Each is timed
+    beside its plain version on the card (F.pad of the NCHW view and
+    aten's reflection_pad2d_backward on an NCHW gradient, the library
+    route's ring before the kernels) and the least time the card could
+    take (the input and output bytes once). Returns the forward's and the
+    backward's records."""
+    F = torch.nn.functional
+    x = torch.randn(b, h, w, c, generator=g).to("cuda", torch.bfloat16)
+    gy = torch.randn(b, h + 2 * p, w + 2 * p, c,
+                     generator=g).to("cuda", torch.bfloat16)
+    y = R._ring_fwd(x, p)
+    _check(y.is_contiguous() and torch.equal(y, R.reflect_ring_plain(x, p)),
+           f"{label}: the forward bit for bit F.pad's")
+    d1 = R._ring_bwd(gy, p, x.shape)
+    d2 = R._ring_bwd(gy, p, x.shape)
+
+    def f64_sum(gd):
+        z = torch.zeros(b, c, h, w, dtype=torch.float64, device="cuda",
+                        requires_grad=True)
+        (d,) = torch.autograd.grad(F.pad(z, (p,) * 4, mode="reflect"), z,
+                                   gd.permute(0, 3, 1, 2))
+        return d.permute(0, 2, 3, 1)
+
+    want = f64_sum(gy.double())
+    mag = f64_sum(gy.double().abs())
+    err = float((d1.double() - want).abs().max())
+    _check(bool(((d1.double() - want).abs() <= 2.0 ** -7 * mag).all())
+           and torch.equal(d1, d2),
+           f"{label}: the backward within one rounding of the f64 sum (max "
+           f"err {err:.3g}), the same bits on a second run")
+    del want, mag, d1, d2
+    ms = time_ms(lambda: R._ring_fwd(x, p))
+    bwd_ms = time_ms(lambda: R._ring_bwd(gy, p, x.shape))
+    plain_ms = time_ms(lambda: R.reflect_ring_plain(x, p))
+    gn = gy.permute(0, 3, 1, 2).contiguous()
+    xn = x.permute(0, 3, 1, 2)
+    plain_bwd_ms = time_ms(lambda: torch.ops.aten.reflection_pad2d_backward(
+        gn, xn, [p] * 4))
+    bms, by = bound_ms(_nbytes(x, gy), 0, BF16_FLOP_S)
+    print(f"     {label}: forward {ms:.3f} ms (plain {plain_ms:.3f}), "
+          f"backward {bwd_ms:.3f} ms (plain {plain_bwd_ms:.3f}), bound "
+          f"{bms:.3f} ms ({by}) each", flush=True)
+    return (dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                 bound_by=by),
+            dict(max_abs_err=err, ms=bwd_ms, plain_ms=plain_bwd_ms,
+                 bound_ms=bms, bound_by=by))
 
 
 def check_onehot(C, g, *, dtype):
@@ -916,6 +971,46 @@ def _zero_counts(counted) -> None:
         fn.launches = 0
 
 
+RING_ENTRIES = ("reflect_ring", "reflect_ring_backward")
+
+
+def _ring_counts() -> dict:
+    """ops/ring's launches since RING_LAUNCHES was cleared: each way's
+    total, and by ring width p ("reflect_ring p1", ...)."""
+    from cocosnet_tpu_torch.ops import ring as R
+    n = dict.fromkeys(RING_ENTRIES, 0)
+    for (way, _, p), k in R.RING_LAUNCHES.items():
+        name = RING_ENTRIES[way == "bwd"]
+        n[name] += k
+        n[f"{name} p{p}"] = n.get(f"{name} p{p}", 0) + k
+    return n
+
+
+def ring_launch_check(records, tag, recomputes=False) -> dict:
+    """ops/ring's launches since RING_LAUNCHES was cleared against those
+    the routing predicts from the recorded convs
+    (tools/ab_dw.predicted_ring_launches), each way by ring width. Where
+    the step recomputes (--remat) only the forward is held here: a conv
+    recomputed in the backward records an x that takes a gradient, and no
+    backward runs through it (the caller holds the backward to the same
+    step without --remat). Returns _ring_counts()."""
+    from cocosnet_tpu_torch.ops import ring as R
+    from cocosnet_tpu_torch.tools import ab_dw as AB
+    got = collections.Counter()
+    for (way, _, p), k in R.RING_LAUNCHES.items():
+        got[(way, p)] += k
+    want = AB.predicted_ring_launches(records)
+    if recomputes:
+        got, want = ({k: v for k, v in c.items() if k[0] == "fwd"}
+                     for c in (got, want))
+    dtypes = sorted({str(k[1]) for k in R.RING_LAUNCHES})
+    _check(dict(+collections.Counter(got)) == dict(want),
+           f"{tag}: the reflect ring launched {dict(got)} ({dtypes}), as "
+           f"the routing predicts from the step's {len(records)} convs"
+           + (" (forward only: --remat)" if recomputes else ""))
+    return _ring_counts()
+
+
 def make_batch(g, b, h, w, nc):
     return {
         "label": torch.randint(0, nc, (b, h, w, 1), generator=g).float(),
@@ -1512,7 +1607,7 @@ def flagship_training(P, cfg, TS, ST, g, match_kernel, route, steps,
     bf16 policy through make_train_step, at `match_kernel` on `route` (the
     correlation's at match_kernel 1; "kernels", "dw" or "fused" at 3):
     train_path against TRAIN_LAUNCHES (its record into `out`). Returns the
-    launches of the counted step."""
+    launches of the counted step, the reflect ring's among them."""
     opt = train_opt(cfg, label_nc=150, crop_size=256, load_size=256,
                     batchSize=8, ngf=64, ndf=64, match_kernel=match_kernel)
     return train_path(
@@ -1529,9 +1624,12 @@ def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
     at unit signal scale, on the batch draw_batch() draws after them: the
     launches of one step, against `expected` and against the routing's
     prediction from the step's recorded convs (the correlation's part of
-    `expected` beside it), the loss terms `loss_keys`, finite, two warm-up
-    steps, then `steps` timed steps, peak memory and a profile of one step.
-    Returns the launches of the counted step."""
+    `expected` beside it), the reflect ring's against the routing's
+    prediction (ring_launch_check), the loss terms `loss_keys`, finite, two
+    warm-up steps, then `steps` timed steps, peak memory and a profile of
+    one step. Returns the launches of the counted step, the ring's among
+    them (_ring_counts)."""
+    from cocosnet_tpu_torch.ops import ring as R
     from cocosnet_tpu_torch.tools import ab_dw as AB
     nets = P.Pix2PixNets(opt, seed=0)
     for net in nets.modules():
@@ -1547,6 +1645,7 @@ def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
 
     counted = counted_entries()
     _zero_counts(counted)
+    R.RING_LAUNCHES.clear()
     res = []
     records = AB.record_convs(lambda: res.append(step(state, batch, lr)))
     losses, vis = res[0]
@@ -1559,6 +1658,8 @@ def train_path(P, TS, ST, g, opt, draw_batch, tag, expected, loss_keys,
            f"every kernel of the train path launched as TRAIN_LAUNCHES "
            f"states {expected} and the routing predicts from the step's "
            f"{len(records)} convs")
+    launches.update(ring_launch_check(records, tag,
+                                      recomputes=bool(opt.remat)))
     _check(set(losses) == loss_keys and finite(losses),
            f"{len(loss_keys)} loss terms, all finite: " + ", ".join(
                f"{k} {float(v):.4g}" for k, v in sorted(losses.items())))
@@ -1759,6 +1860,7 @@ def serve_graphs(P, cfg, L, g) -> dict:
     the same way, on two batches after one capture; at match_kernel 3, the
     graph's and the eager forward's CUDA-event ms and profiles. Returns the
     capture calls' launches by (match_kernel, batch) and the mk3 nets."""
+    from cocosnet_tpu_torch.ops import ring as R
     from cocosnet_tpu_torch.tools import serve as SV
     from cocosnet_tpu_torch.train.steps import make_inference_step
     L.set_compute_dtype(torch.bfloat16)
@@ -1779,19 +1881,31 @@ def serve_graphs(P, cfg, L, g) -> dict:
             batches = [{k: v.cuda() for k, v in make_batch(
                 g, b, 256, 256, opt.semantic_nc).items()} for _ in range(2)]
             _zero_counts(counted)
+            R.RING_LAUNCHES.clear()
             want = eager(batches[0])
             torch.cuda.synchronize()
             forward = {k: fn.launches for k, fn in counted.items()}
+            ring = {k: _ring_counts()[k] for k in RING_ENTRIES}
             want = [want, eager(batches[1])]
             step = SV.make_serve_step(nets, b)
             step.warm_up()
             _zero_counts(counted)
+            R.RING_LAUNCHES.clear()
             step.capture()
             torch.cuda.synchronize()
             captures[(mk, b)] = {k: fn.launches for k, fn in counted.items()}
             _check(captures[(mk, b)] == forward == INFERENCE_LAUNCHES[mk],
                    f"{tag}: the capture call launched {captures[(mk, b)]}, "
                    f"one eager forward's launches")
+            # the small maps' reflect convs (W < 32) take the library
+            # route, their ring built by ops/ring's forward kernel
+            captures[(mk, b)].update(
+                {k: _ring_counts()[k] for k in RING_ENTRIES})
+            _check(ring == {k: captures[(mk, b)][k] for k in RING_ENTRIES}
+                   and ring["reflect_ring"] > 0
+                   and ring["reflect_ring_backward"] == 0,
+                   f"{tag}: the reflect ring launched {ring} in the eager "
+                   f"forward and on the capture call, forward only")
             for i, batch in enumerate(batches):
                 got = step(batch).clone()
                 diff = int((got.int() - want[i].int()).abs().max())
@@ -1803,7 +1917,9 @@ def serve_graphs(P, cfg, L, g) -> dict:
                     f"forward's bits (max level diff {diff}; std {std:.1f} "
                     f"levels)")
             _check(all(fn.launches == captures[(mk, b)][k]
-                       for k, fn in counted.items()),
+                       for k, fn in counted.items())
+                   and _ring_counts()["reflect_ring"]
+                   == captures[(mk, b)]["reflect_ring"],
                    f"{tag}: the replays ran no kernel wrapper")
             if mk == 3:
                 graph_ms = time_ms(lambda: step(batches[0]), runs=10)
@@ -3023,6 +3139,20 @@ def explicit_matrix_check(P, cfg, g) -> None:
            f"max err {werr:.3g} <= 5e-4")
 
 
+def remat_ring_check(runs) -> None:
+    """(b)'s steps with and without --remat (their launches in `runs`):
+    the reflect ring's backward launches alike, by ring width, the dilated
+    blocks' p 2 among them, since a conv's ring takes one backward whether
+    or not its block is recomputed (ring_launch_check)."""
+    tags = [t for t in runs if t.startswith("(b) extras B8 training")]
+    bwd = {t: {k: v for k, v in runs[t].items()
+               if k.startswith("reflect_ring_backward")} for t in tags}
+    _check(len(tags) == 3 and all(bwd[t] == bwd[tags[0]] for t in tags)
+           and bwd[tags[0]].get("reflect_ring_backward p2", 0) > 0,
+           f"(b) the reflect ring's backward launches alike with and "
+           f"without --remat: {bwd}")
+
+
 def architecture_branches(P, cfg, L, C, TS, ST, g) -> dict:
     """Phase 12: the branches off the flagship at flagship width (256 px,
     ngf / ndf 64, match_kernel 3, bf16 policy):
@@ -3089,6 +3219,7 @@ def architecture_branches(P, cfg, L, C, TS, ST, g) -> dict:
             REMAT_LAUNCHES[whole], FLAGSHIP_LOSS_KEYS, 2, profile=False,
             out=rec)
         info[tag] = rec
+    remat_ring_check(out)
     L.set_compute_dtype(None)
     # (c)
     explicit_matrix_check(P, cfg, g)
@@ -3865,6 +3996,7 @@ def kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g, g_widths) -> dict:
     the other configurations' warp widths from g_widths (a generator of its
     own: every later check of g draws what it drew before them). Returns
     the kernels' records by name."""
+    from cocosnet_tpu_torch.ops import ring as R
     rows = {}
     # pono_c off: the centering of the reference's default norm (no
     # --PONO_C), phase 12's configuration (a)
@@ -3922,6 +4054,19 @@ def kernel_checks(P, cfg, L, C, S, Kc, KB, TC, g, g_widths) -> dict:
         r = check_onehot(C, g, dtype=dtype)
         if dtype == torch.bfloat16:
             rows["conv3x3_onehot"] = r
+    # the reflect ring of the library route's convs at the flagship step's
+    # bf16 shapes: the 154-channel label map and the 128-channel
+    # activations of up_3's SPADEs at 256^2, and the adaptor's dilated
+    # block (p 2) at 64^2, from a generator of their own
+    g_ring = torch.Generator().manual_seed(16)
+    for suffix, (b, h, w, c, p) in (("", (8, 256, 256, 154, 1)),
+                                    (" 128ch", (8, 256, 256, 128, 1)),
+                                    (" p2", (8, 64, 64, 256, 2))):
+        label = f"reflect ring B{b} {h}^2 C{c} p{p}"
+        rows["reflect_ring" + suffix], \
+            rows["reflect_ring_backward" + suffix] = check_ring(
+                R, g_ring, b=b, h=h, w=w, c=c, p=p, label=label)
+    torch.cuda.empty_cache()
     # match_kernel 1: the forward at the inference shape (batch 6), the
     # backward at the training shape (batch 8), then both at N = M = 2500
     # (a 200 px crop: partial query and key tiles)
@@ -4217,6 +4362,21 @@ def main() -> None:
         kernels.append(dict(name=name, route="cuda", source=src[base][0],
                             replaces=src[base][1], path=path,
                             launches=runs[path][base], **rows[name]))
+    # the reflect ring (no TPU kernel: the JAX package pads in XLA) with
+    # the launches of the flagship train step (p 1) and of the serve
+    # graph's capture call, and the dilated adaptor's row (p 2) with those
+    # of (b)'s step without --remat
+    for suffix, path, p in (("", "train step", 1),
+                            (" 128ch", "train step", 1),
+                            (" p2", "(b) extras B8 training", 2)):
+        for base in RING_ENTRIES:
+            kernels.append(dict(
+                name=base + suffix, route="cuda",
+                source="cocosnet_tpu_torch/csrc/reflect_ring.cu",
+                replaces=None, path=path,
+                launches=runs[path].get(f"{base} p{p}", 0),
+                serve_launches=serve_launches[base] if p == 1 else 0,
+                **rows[base + suffix]))
     kernels.append(dict(
         name="conv3x3_fused_stats 410->410 @64^2", route="cuda",
         source=src["conv3x3_fused_stats"][0],

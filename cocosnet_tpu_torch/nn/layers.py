@@ -42,6 +42,7 @@ from cocosnet_tpu_torch.ops.conv3x3 import (conv3x3_dw_supported,
                                             conv3x3_fused,
                                             conv3x3_fused_stats,
                                             conv3x3_onehot, conv3x3_xla_pdw)
+from cocosnet_tpu_torch.ops.ring import reflect_ring
 
 # "1" (or "true") lets training convs take conv3x3_fused where its gate
 # agrees; anything else keeps them off it
@@ -203,7 +204,8 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
     `conv3x3_stats_supported`, else to the conv below and torch moments;
     then conv3x3_fused where `conv3x3_supported`; inside `training()`, a
     3x3 stride-1 conv (reflect or padding 1) of the dW gate to
-    conv3x3_xla_pdw; everything else to F.conv2d."""
+    conv3x3_xla_pdw; everything else to F.conv2d, its reflect ring built in
+    NHWC by ops/ring.reflect_ring and its operands channels-last."""
     weight = kernel
     if _COMPUTE_DTYPE is not None:
         x = x.to(_COMPUTE_DTYPE)
@@ -243,9 +245,16 @@ def conv2d(x, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
     xc = _nchw(x)
     if reflect:
         p = dilation * (kernel.shape[0] - 1) // 2
-        xc = F.pad(xc, (p, p, p, p), mode="reflect")
-    y = F.conv2d(xc, kernel.permute(3, 2, 0, 1),
-                 None if bias is None else bias.to(x.dtype),
+        xc = _nchw(reflect_ring(x, p)) if p else xc
+    # the ring built in NHWC and the weight channels-last: cuDNN takes both
+    # as they are (an input that is not NHWC-contiguous is copied to it) and
+    # returns a channels-last y, with no layout transform either way. A
+    # conv of one output channel (the discriminator's last) still gets one:
+    # its y's layout is ambiguous. The non-reflect convs, whose input was
+    # channels-last already, share the weight line and gain nothing by it
+    w = kernel.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    y = F.conv2d(xc, w, None if bias is None else bias.to(x.dtype),
                  stride=stride, padding=padding, dilation=dilation)
     return _nhwc(y)
 

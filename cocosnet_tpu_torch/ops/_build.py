@@ -25,7 +25,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 SOURCES = ("shift9_fwd", "shift9_bwd", "conv3x3", "conv3x3_onehot",
-           "corr_fwd", "corr_bwd", "conv3x3_dw", "stage_mark")
+           "corr_fwd", "corr_bwd", "conv3x3_dw", "stage_mark",
+           "reflect_ring")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -67,6 +68,10 @@ SIGNATURES = {
     },
     "stage_mark": {
         "cocosnet_stage_mark": [_I, _P],
+    },
+    "reflect_ring": {
+        "cocosnet_reflect_ring_fwd": [_P] * 2 + [_I] * 7 + [_P],
+        "cocosnet_reflect_ring_bwd": [_P] * 2 + [_I] * 7 + [_P],
     },
 }
 

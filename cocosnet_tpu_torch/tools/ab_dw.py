@@ -16,8 +16,9 @@ routing. From the repository root:
 
     python -m cocosnet_tpu_torch.tools.ab_dw [--batch 8] [--iters 20]
 
-`record_convs` and `predicted_launches` are the spy and the routing
-prediction that chip_smoke.py holds each path's launch counts to.
+`record_convs`, `predicted_launches` and `predicted_ring_launches` are the
+spy and the routing predictions that chip_smoke.py holds each path's launch
+counts to.
 """
 
 from __future__ import annotations
@@ -74,39 +75,66 @@ def record_convs(fn) -> list:
     return records
 
 
+def conv_route(r) -> str:
+    """The entry nn.layers.conv2d takes for a recorded call under the
+    environment as it stands: "conv3x3_onehot", "conv3x3_fused_stats",
+    "conv3x3_fused", "conv3x3_xla_pdw" (the dW route) or "library"
+    (F.conv2d). A dilated conv takes no kernel."""
+    from cocosnet_tpu_torch.nn import layers as L
+    from cocosnet_tpu_torch.ops import conv3x3 as C
+    if r.get("dilation", 1) != 1:
+        return "library"
+    xs, ks = r["x_shape"], r["kernel_shape"]
+    k3s1 = tuple(ks[:2]) == (3, 3) and r["stride"] == 1
+    ctx = L.training() if r["training"] else contextlib.nullcontext()
+    with ctx:
+        if r["onehot"] and k3s1 and r["padding"] == 1 \
+                and not r["reflect"] and L.conv3x3_onehot_supported(
+                    xs[:3], xs[3], ks[3]):
+            return "conv3x3_onehot"
+        gate = dict(stride=r["stride"],
+                    padding=1 if r["reflect"] else r["padding"])
+        if r["want_stats"] and L.conv3x3_stats_supported(xs, ks, **gate):
+            return "conv3x3_fused_stats"
+        if L.conv3x3_supported(xs, ks, **gate):
+            return "conv3x3_fused"
+        if (r["training"] and k3s1 and (r["reflect"] or r["padding"] == 1)
+                and C.conv3x3_dw_supported(xs, ks, reflect=r["reflect"])):
+            return "conv3x3_xla_pdw"
+    return "library"
+
+
 def predicted_launches(records) -> collections.Counter:
     """The kernel launches the routing of nn.layers.conv2d predicts for the
     recorded calls under the environment as it stands: one per forward
     kernel; a conv3x3_fused backward (its dx) where x required grad; a
     conv3x3_dw where the kernel or the bias did, on the dW route. A
     dilated conv launches none."""
-    from cocosnet_tpu_torch.nn import layers as L
-    from cocosnet_tpu_torch.ops import conv3x3 as C
     n = collections.Counter()
     for r in records:
-        if r.get("dilation", 1) != 1:
-            continue
-        xs, ks = r["x_shape"], r["kernel_shape"]
-        k3s1 = tuple(ks[:2]) == (3, 3) and r["stride"] == 1
-        ctx = L.training() if r["training"] else contextlib.nullcontext()
-        with ctx:
-            if r["onehot"] and k3s1 and r["padding"] == 1 \
-                    and not r["reflect"] and L.conv3x3_onehot_supported(
-                        xs[:3], xs[3], ks[3]):
-                n["conv3x3_onehot"] += 1
-                continue
-            gate = dict(stride=r["stride"],
-                        padding=1 if r["reflect"] else r["padding"])
-            if r["want_stats"] and L.conv3x3_stats_supported(xs, ks, **gate):
-                n["conv3x3_fused_stats"] += 1
-            elif L.conv3x3_supported(xs, ks, **gate):
-                n["conv3x3_fused"] += 1
-                n["conv3x3_fused_backward"] += int(r["x_grad"])
-            elif (r["training"] and k3s1
-                  and (r["reflect"] or r["padding"] == 1)
-                  and C.conv3x3_dw_supported(xs, ks, reflect=r["reflect"])):
-                n["conv3x3_dw"] += int(r["w_grad"] or r["b_grad"])
+        route = conv_route(r)
+        if route in ("conv3x3_onehot", "conv3x3_fused_stats"):
+            n[route] += 1
+        elif route == "conv3x3_fused":
+            n[route] += 1
+            n["conv3x3_fused_backward"] += int(r["x_grad"])
+        elif route == "conv3x3_xla_pdw":
+            n["conv3x3_dw"] += int(r["w_grad"] or r["b_grad"])
     return n
+
+
+def predicted_ring_launches(records) -> collections.Counter:
+    """The launches of ops/ring.reflect_ring's kernels on CUDA tensors that
+    the routing predicts for the recorded calls, keyed ("fwd" | "bwd", p):
+    a forward for each reflect conv of the library route with a ring p =
+    dilation (k - 1) / 2 > 0, and a backward where its x required grad."""
+    n = collections.Counter()
+    for r in records:
+        p = r.get("dilation", 1) * (r["kernel_shape"][0] - 1) // 2
+        if r["reflect"] and p and conv_route(r) == "library":
+            n[("fwd", p)] += 1
+            n[("bwd", p)] += int(r["x_grad"])
+    return +n
 
 
 def flagship_train_opt(batch: int):

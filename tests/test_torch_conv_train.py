@@ -14,6 +14,7 @@ values, reordered; measured below 2e-6) and 1e-5 for everything else (the
 same math in another framework's f32 order). The loss is sum(sin(y)), so
 every output element gets its own cotangent."""
 
+import collections
 from contextlib import nullcontext
 
 import numpy as np
@@ -26,7 +27,9 @@ import torch
 from cocosnet_tpu.ops import pallas_conv as PC
 from cocosnet_tpu_torch.nn import layers as TL
 from cocosnet_tpu_torch.ops import conv3x3 as C
-from cocosnet_tpu_torch.tools.ab_dw import predicted_launches, record_convs
+from cocosnet_tpu_torch.tools.ab_dw import (predicted_launches,
+                                            predicted_ring_launches,
+                                            record_convs)
 from test_torch_threads import torch_threads  # noqa: F401
 
 
@@ -373,25 +376,39 @@ COUNTED = ("conv3x3_fused", "conv3x3_fused_stats", "conv3x3_fused_backward",
            "conv3x3_dw", "conv3x3_onehot")
 
 
-@pytest.mark.parametrize("fused_train,dw,expected", [
-    (None, None, {}),
-    (None, "1", {"conv3x3_dw": 1}),
-    (None, "all", {"conv3x3_dw": 3}),
-    ("1", None, {"conv3x3_fused": 4, "conv3x3_fused_backward": 4}),
-    ("1", "all", {"conv3x3_fused": 4, "conv3x3_fused_backward": 4}),
+@pytest.mark.parametrize("fused_train,dw,expected,rings", [
+    (None, None, {}, 2),
+    (None, "1", {"conv3x3_dw": 1}, 1),
+    (None, "all", {"conv3x3_dw": 3}, 0),
+    ("1", None, {"conv3x3_fused": 4, "conv3x3_fused_backward": 4}, 0),
+    ("1", "all", {"conv3x3_fused": 4, "conv3x3_fused_backward": 4}, 0),
 ])
-def test_training_routing_counts(monkeypatch, fused_train, dw, expected):
+def test_training_routing_counts(monkeypatch, fused_train, dw, expected,
+                                 rings):
     """One forward and backward of the ROUTING_CONVS inside training(): the
     calls of each entry (their plain versions here) are what the routing
     predicts, tools/ab_dw.predicted_launches agrees, and the results equal
     the library route's. The frozen conv's weight takes no gradient, so it
     takes no dW; the stats request takes the conv below it and torch
-    moments (no statistics kernel in training)."""
+    moments (no statistics kernel in training). The reflect convs left on
+    the library route (`rings` of them) call ops/ring.reflect_ring once
+    each, on an x that takes a gradient, as
+    tools/ab_dw.predicted_ring_launches predicts."""
     for env, val in ((TL.FUSED_TRAIN_ENV, fused_train), (C.DW_ENV, dw)):
         if val is None:
             monkeypatch.delenv(env, raising=False)
         else:
             monkeypatch.setenv(env, val)
+    ring_calls = collections.Counter()
+    plain_ring = TL.reflect_ring
+
+    def ring_spy(x, p):
+        ring_calls[("fwd", p)] += 1
+        ring_calls[("bwd", p)] += int(torch.is_grad_enabled()
+                                      and x.requires_grad)
+        return plain_ring(x, p)
+
+    monkeypatch.setattr(TL, "reflect_ring", ring_spy)
     rs = np.random.RandomState(8)
     convs = []
     for name, xs, co, kw in ROUTING_CONVS:
@@ -419,6 +436,8 @@ def test_training_routing_counts(monkeypatch, fused_train, dw, expected):
     assert {n: v for n, v in moved.items() if v} == expected
     assert {n: v for n, v in predicted_launches(records).items() if v} \
         == expected
+    want_rings = {("fwd", 1): rings, ("bwd", 1): rings} if rings else {}
+    assert +ring_calls == predicted_ring_launches(records) == want_rings
     monkeypatch.delenv(TL.FUSED_TRAIN_ENV, raising=False)
     monkeypatch.delenv(C.DW_ENV, raising=False)
     with TL.training():
@@ -428,4 +447,31 @@ def test_training_routing_counts(monkeypatch, fused_train, dw, expected):
     for a, r in zip(outs, want):
         _close(a.detach().numpy(), r.detach().numpy(), 1e-5)
     for a, r in zip(grads, wgrads):
+        _close(a.numpy(), r.numpy(), 2e-5)
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_training_reflect_conv_is_pad_and_conv(monkeypatch, dilation):
+    """A reflect conv on the library route inside training() (its ring from
+    ops/ring.reflect_ring, the weight channels-last): the values and
+    gradients of F.pad(mode="reflect") + F.conv2d on NCHW at f32, and an
+    NHWC output that is contiguous."""
+    monkeypatch.delenv(TL.FUSED_TRAIN_ENV, raising=False)
+    monkeypatch.delenv(C.DW_ENV, raising=False)
+    x, k, bias, g = (torch.from_numpy(a) for a in _inputs((2, 7, 10, 24, 16),
+                                                          dilation))
+    x.requires_grad_()
+    k.requires_grad_()
+    with TL.training():
+        y = TL.conv2d(x, k, bias, reflect=True, dilation=dilation)
+        got = torch.autograd.grad(y, (x, k), g)
+    assert y.is_contiguous()
+    xr, kr = x.detach().requires_grad_(), k.detach().requires_grad_()
+    yr = torch.nn.functional.conv2d(
+        torch.nn.functional.pad(xr.permute(0, 3, 1, 2), (dilation,) * 4,
+                                mode="reflect"),
+        kr.permute(3, 2, 0, 1), bias, dilation=dilation).permute(0, 2, 3, 1)
+    want = torch.autograd.grad(yr, (xr, kr), g)
+    _close(y.detach().numpy(), yr.detach().numpy(), 1e-5)
+    for a, r in zip(got, want):
         _close(a.numpy(), r.numpy(), 2e-5)
